@@ -5,7 +5,9 @@ setup(
     version='0.1.0',
     description='TPU-native 3D point-cloud instance/semantic/panoptic '
                 'segmentation (SoftGroup / SoftGroup++ capabilities)',
-    packages=find_packages(include=('softgroup_tpu', 'softgroup_tpu.*')),
+    packages=find_packages(include=('softgroup_tpu', 'softgroup_tpu.*',
+                                    'softgroup_tpu_torch',
+                                    'softgroup_tpu_torch.*')),
     python_requires='>=3.10',
     install_requires=['jax', 'flax', 'optax', 'orbax-checkpoint', 'numpy',
                       'scipy', 'pyyaml'],
@@ -13,5 +15,6 @@ setup(
         'io': ['torch', 'plyfile'],
         'viz': ['open3d'],
     },
-    package_data={'softgroup_tpu': ['csrc/*.cpp', 'csrc/*.py']},
+    package_data={'softgroup_tpu': ['csrc/*.cpp', 'csrc/*.py'],
+                  'softgroup_tpu_torch': ['csrc/*.cu']},
 )

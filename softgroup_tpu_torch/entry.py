@@ -1,0 +1,75 @@
+"""Entry points of the port: the flagship ScanNet model (channels 32, 7 U-Net
+levels, 20 semantic / 18 instance classes), its config and the bench
+capacities, the host batch and ``test_forward``.  A request is
+``build_batch`` -> ``infer`` -> ``evaluation.postprocess.get_instances``
+(``chip_smoke.py`` drives exactly that).
+
+Counterpart of ``__graft_entry__._net_cfg`` / ``_build`` and the capacities
+of ``bench.py``.  Everything runs on ``device`` (default the card); pass
+``device="cpu"`` for the plain PyTorch versions of the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .data.padding import build_scene_batch
+from .data.synthetic import collate_scenes
+from .model.softgroup import Capacities, SceneBatch, SoftGroupNet
+from .util.config import Config
+
+
+def flagship_cfg(channels: int = 32, num_blocks: int = 7) -> Config:
+    return Config(dict(
+        channels=channels, num_blocks=num_blocks, semantic_classes=20,
+        instance_classes=18, semantic_only=False, ignore_label=-100,
+        with_coords=True, sem2ins_classes=[],
+        grouping_cfg=dict(score_thr=0.2, radius=0.04, mean_active=300,
+                          class_numpoint_mean=[-1.0] * 20, npoint_thr=50,
+                          ignore_classes=[0, 1], pair_keys=False),
+        instance_voxel_cfg=dict(scale=50, spatial_shape=20),
+        train_cfg=dict(max_proposal_num=64, pos_iou_thr=0.5),
+        test_cfg=dict(x4_split=False, cls_score_thr=0.001,
+                      mask_score_thr=-0.5, min_npoint=100,
+                      eval_tasks=['semantic', 'instance']),
+    ))
+
+
+def bench_capacities() -> Capacities:
+    """Static capacities of the flagship bench (a 250k-point room scan)."""
+    return Capacities(
+        points=262144,
+        voxels=(196608, 98304, 32768, 8192, 2048, 1024, 512),
+        grouping_points=393216, proposals=256, proposal_entries=262144,
+        instances=128, inst_voxels=(65536, 16384), grouping_cells=16384)
+
+
+def build_net(cfg: Config, seed: int = 0, device='cuda',
+              bf16: bool = True) -> SoftGroupNet:
+    """The flagship net with a seeded init, in eval mode on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    net = SoftGroupNet(channels=cfg.channels, num_blocks=cfg.num_blocks,
+                       semantic_classes=cfg.semantic_classes,
+                       instance_classes=cfg.instance_classes,
+                       semantic_only=cfg.semantic_only, bf16=bf16,
+                       generator=gen)
+    return net.to(device).eval()
+
+
+def build_batch(scene, cfg: Config, caps: Capacities, scale: float = 50.0,
+                device='cuda') -> SceneBatch:
+    """One scene (xyz, rgb, semantic, instance) -> a padded SceneBatch."""
+    data = collate_scenes([scene], scale=scale)
+    return build_scene_batch(
+        data['coords'], data['coords_float'], data['feats'],
+        data['semantic_labels'], data['instance_labels'],
+        data['pt_offset_labels'], data['instance_pointnum'],
+        data['instance_cls'], data['spatial_shape'], caps,
+        num_levels=cfg.num_blocks, ignore_label=cfg.ignore_label,
+        with_coords=cfg.with_coords, device=device)
+
+
+def infer(net: SoftGroupNet, batch: SceneBatch, cfg: Config,
+          caps: Capacities) -> dict:
+    """The ``test_forward`` outputs (tensors on the batch's device)."""
+    return net.test_forward(batch, cfg, caps)

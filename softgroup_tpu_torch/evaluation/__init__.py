@@ -1,0 +1,1 @@
+"""evaluation of the PyTorch/CUDA port (see the package docstring)."""

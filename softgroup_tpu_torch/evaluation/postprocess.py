@@ -1,0 +1,84 @@
+"""Host-side inference postprocessing: the per-scan instance list from the
+outputs of ``SoftGroupNet.test_forward`` (numpy copy of
+``softgroup_tpu/evaluation/postprocess.py:get_instances``).
+
+``out`` holds numpy arrays (``to_numpy`` converts a dict of tensors); entries
+are CSR-sorted by proposal id.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..util.rle import rle_encode
+
+
+def to_numpy(out: dict) -> dict:
+    """Device outputs -> numpy (one host copy per array)."""
+    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+
+
+def get_instances(scan_id: str, out: dict, n_points: int, cfg,
+                  v2p_map: np.ndarray | None = None) -> list[dict]:
+    """Build the per-scan instance list from device outputs.
+
+    out: dict from test_forward (numpy-converted); entries are CSR-sorted by
+    proposal id.  n_points: real (unpadded) point count of the scan.
+    """
+    cls_scores = np.asarray(out['cls_scores'])        # (Pmax, K+1) softmaxed
+    iou_scores = np.asarray(out['iou_scores'])        # (Pmax, K+1)
+    mask_scores = np.asarray(out['mask_scores'])      # (S, K+1)
+    entry_pt = np.asarray(out['entry_pt'])
+    entry_seg = np.asarray(out['entry_seg'])
+    entry_valid = np.asarray(out['entry_valid'])
+    n_props = int(out['n_proposals'])
+    k = cls_scores.shape[1] - 1
+
+    lvl_fusion = v2p_map is not None
+    # semantic_preds are always point-level (test_forward_plus gathers them
+    # through p2v already); sem2ins masks therefore never need expansion
+    n_real_points = len(v2p_map) if lvl_fusion else n_points
+    semantic_pred = np.asarray(out['semantic_preds'])[:n_real_points]
+
+    # per-proposal CSR ranges (entries are sorted by proposal id)
+    ev = entry_valid
+    seg = entry_seg[ev]
+    pts = entry_pt[ev]
+    msk = mask_scores[ev]
+    order = np.argsort(seg, kind='stable')
+    seg, pts, msk = seg[order], pts[order], msk[order]
+    starts = np.searchsorted(seg, np.arange(n_props))
+    ends = np.searchsorted(seg, np.arange(n_props) + 1)
+
+    instances = []
+    for i in range(k):
+        if i in cfg.sem2ins_classes:
+            mask = (semantic_pred == i).astype(np.uint8)
+            instances.append(dict(scan_id=scan_id, label_id=i + 1, conf=1.0,
+                                  pred_mask=rle_encode(mask)))
+            continue
+        score = cls_scores[:n_props, i] * np.clip(iou_scores[:n_props, i],
+                                                  0, 1)
+        keep = cls_scores[:n_props, i] > cfg.test_cfg.cls_score_thr
+        gate = msk[:, i] > cfg.test_cfg.mask_score_thr
+        for p in np.nonzero(keep)[0]:
+            sel = slice(starts[p], ends[p])
+            ppts = pts[sel][gate[sel]]
+            if lvl_fusion:
+                mask = np.zeros(n_points, np.uint8)
+                mask[ppts[ppts < n_points]] = 1
+                mask = mask[v2p_map]
+                npoint = int(mask.sum())
+            else:
+                ppts = ppts[ppts < n_points]
+                npoint = len(ppts)
+                mask = None
+            if npoint < cfg.test_cfg.min_npoint:
+                continue
+            if mask is None:
+                mask = np.zeros(n_points, np.uint8)
+                mask[ppts] = 1
+            instances.append(dict(scan_id=scan_id, label_id=i + 1,
+                                  conf=float(score[p]),
+                                  pred_mask=rle_encode(mask)))
+    return instances

@@ -1,0 +1,1 @@
+"""model of the PyTorch/CUDA port (see the package docstring)."""

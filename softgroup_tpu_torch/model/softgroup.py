@@ -1,0 +1,313 @@
+"""SoftGroup inference in PyTorch (counterpart of
+``softgroup_tpu/model/softgroup.py``: ``SoftGroupNet`` setup / ``backbone`` /
+``instance_head`` / ``test_forward``, ``forward_grouping``,
+``clusters_voxelization``, ``build_keyed_levels``).
+
+Shapes are static capacities with validity masks, as in the reference, so
+the outputs of ``test_forward`` carry the same keys and layouts: proposals
+are a CSR of (entry_pt, entry_seg, entry_valid) truncated at the same
+capacities.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, NamedTuple, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.gather_kernel import row_gather
+from ..ops.geometry import LevelGeom, Pyramid
+from ..ops.grouping import cell_cluster_csr
+from ..ops.segment import (segment_max, segment_mean, segment_mean_fused,
+                           segment_min)
+from ..ops.voxelize import compact_ascending, devoxelize, voxelize_linear
+from ..util.config import getattr_or
+from .blocks import MLP, Dense, MaskedBatchNorm, SubMConv, UBlock
+
+INT_MAX = 2 ** 31 - 1
+
+
+@dataclass
+class SceneBatch:
+    """Static-shape batch of tensors (built by data/padding.py)."""
+    pyramid: Pyramid
+    feats: torch.Tensor              # (P, C_in) colors
+    coords_float: torch.Tensor       # (P, 3) metric coords
+    batch_idxs: torch.Tensor         # (P,) int32
+    semantic_labels: torch.Tensor    # (P,) int32, ignore_label padded
+    instance_labels: torch.Tensor    # (P,) int32, ignore_label padded
+    pt_offset_labels: torch.Tensor   # (P, 3)
+    instance_pointnum: torch.Tensor  # (I,) int32
+    instance_cls: torch.Tensor       # (I,) int32
+    instance_valid: torch.Tensor     # (I,) bool
+    vox_in: torch.Tensor             # (V0, C_in) voxel-mean network input
+    point_perm: torch.Tensor         # (P,) original index of each row
+
+
+class Capacities(NamedTuple):
+    """Static paddings: every dynamic size becomes a capacity + mask."""
+    points: int
+    voxels: tuple
+    grouping_points: int
+    proposals: int
+    proposal_entries: int
+    instances: int
+    inst_voxels: tuple
+    grouping_cells: int = 65536
+
+
+class Proposals(NamedTuple):
+    """Static-capacity CSR proposal layout."""
+    entry_pt: torch.Tensor      # (S,) int32 point index per entry
+    entry_seg: torch.Tensor     # (S,) int32 proposal id (cap = invalid)
+    entry_valid: torch.Tensor   # (S,) bool
+    n_proposals: torch.Tensor   # () int32
+    prop_valid: torch.Tensor    # (Pmax,) bool
+
+
+class SoftGroupNet(nn.Module):
+    """Backbone U-Net + point heads + the refinement heads.
+
+    ``bf16``: backbone and refinement convs compute in bf16 with f32 sums
+    (the reference's policy); heads return f32.  ``generator`` seeds the
+    init (the reference's initializers; parameters are created on the CPU,
+    move the module with ``.to(device)``)."""
+
+    def __init__(self, channels: int = 32, num_blocks: int = 7,
+                 semantic_classes: int = 20, instance_classes: int = 18,
+                 semantic_only: bool = False, bf16: bool = True,
+                 in_channels: int = 6,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        ch = channels
+        g = generator
+        self.semantic_only = semantic_only
+        self.bf16 = bf16
+        self.input_conv = SubMConv(in_channels, ch, g)
+        self.unet = UBlock([ch * (i + 1) for i in range(num_blocks)],
+                           block_reps=2, generator=g)
+        self.output_norm = MaskedBatchNorm(ch)
+        self.semantic_linear = MLP(ch, semantic_classes, norm=True,
+                                   num_layers=2, generator=g)
+        self.offset_linear = MLP(ch, 3, norm=True, num_layers=2, generator=g)
+        if not semantic_only:
+            self.tiny_unet = UBlock([ch, 2 * ch], block_reps=2, generator=g)
+            self.tiny_output_norm = MaskedBatchNorm(ch)
+            self.cls_linear = Dense(ch, instance_classes + 1, g)
+            self.mask_linear = MLP(ch, instance_classes + 1, norm=False,
+                                   num_layers=2, generator=g)
+            self.iou_score_linear = Dense(ch, instance_classes + 1, g)
+
+    def backbone(self, x: torch.Tensor, pyramid: Pyramid):
+        """input_conv -> UBlock -> BN/ReLU -> devoxelize -> point heads.
+        ``x`` is the voxel-level input (V0, C_in)."""
+        lv0 = pyramid.levels[0]
+        x = x.to(torch.bfloat16 if self.bf16 else torch.float32)
+        x = self.input_conv(x, lv0)
+        x = self.unet(x, pyramid.levels)
+        x = torch.relu(self.output_norm(x))
+        output_feats = devoxelize(x, pyramid.p2v)
+        semantic_scores = self.semantic_linear(output_feats).float()
+        pt_offsets = self.offset_linear(output_feats).float()
+        return semantic_scores, pt_offsets, output_feats
+
+    def instance_head(self, inst_vox_feats, inst_levels, entry_p2v,
+                      n_proposal_cap: int):
+        """tiny U-Net + cls / mask / iou heads."""
+        lv0 = inst_levels[0]
+        x = inst_vox_feats.to(torch.bfloat16 if self.bf16
+                              else torch.float32)
+        x = self.tiny_unet(x, inst_levels)
+        x = torch.relu(self.tiny_output_norm(x))
+        mask_scores_vox = self.mask_linear(x)
+        mask_scores = row_gather(mask_scores_vox, entry_p2v)
+        # proposal-level pooled features; a voxel's proposal id is its
+        # batch coordinate
+        vox_seg = torch.where(lv0.vox_valid, lv0.vox_coords[:, 0],
+                              n_proposal_cap)
+        pooled = segment_mean(x, vox_seg, n_proposal_cap)
+        cls_scores = self.cls_linear(pooled).float()
+        iou_scores = self.iou_score_linear(pooled).float()
+        return cls_scores, iou_scores, mask_scores.float()
+
+    @torch.no_grad()
+    def test_forward(self, batch: SceneBatch, cfg, caps: Capacities) -> dict:
+        """Device part of inference; host instance extraction lives in
+        evaluation/postprocess.py."""
+        sem, off, outf = self.backbone(batch.vox_in, batch.pyramid)
+        out = dict(semantic_scores=sem, pt_offsets=off,
+                   semantic_preds=torch.argmax(sem, dim=1))
+        if not self.semantic_only:
+            props = forward_grouping(sem, off, batch.batch_idxs,
+                                     batch.coords_float,
+                                     batch.pyramid.point_valid, cfg, caps)
+            vox_feats, levels, entry_p2v = clusters_voxelization(
+                props, outf, batch.coords_float,
+                float(cfg.instance_voxel_cfg.scale),
+                int(cfg.instance_voxel_cfg.spatial_shape), caps)
+            cls_scores, iou_scores, mask_scores = self.instance_head(
+                vox_feats, levels, entry_p2v, caps.proposals)
+            out.update(
+                cls_scores=torch.softmax(cls_scores, dim=-1),
+                iou_scores=iou_scores, mask_scores=mask_scores,
+                entry_pt=props.entry_pt, entry_seg=props.entry_seg,
+                entry_valid=props.entry_valid, n_proposals=props.n_proposals)
+        return out
+
+
+# ---------------------------------------------------------------------------
+# Grouping (no parameters)
+# ---------------------------------------------------------------------------
+
+def forward_grouping(semantic_scores: torch.Tensor, pt_offsets: torch.Tensor,
+                     batch_idxs: torch.Tensor, coords_float: torch.Tensor,
+                     point_valid: torch.Tensor, cfg: Any,
+                     caps: Any) -> Proposals:
+    """Class-wise soft grouping.  A point joins every non-ignored class
+    whose softmax score clears score_thr; classes with fewer than min_npoint
+    active points yield nothing; all classes cluster in one call (the group
+    key separates them) and components below the class-size threshold are
+    dropped."""
+    gcfg = cfg.grouping_cfg
+    if getattr_or(gcfg, 'exact_ball_query', False):
+        raise NotImplementedError('exact_ball_query grouping is not ported')
+    if getattr_or(gcfg, 'with_pyramid', False):
+        raise NotImplementedError('with_pyramid grouping is not ported')
+    dev = semantic_scores.device
+    p, n_cls = semantic_scores.shape
+    n_tot = caps.grouping_points
+    scores = torch.softmax(semantic_scores.float(), dim=-1)
+
+    ignore = torch.zeros((n_cls,), dtype=torch.bool, device=dev)
+    ignore[list(gcfg.ignore_classes)] = True
+    numpoint_mean = torch.tensor(gcfg.class_numpoint_mean,
+                                 dtype=torch.float32, device=dev)
+    radius = float(gcfg.radius)
+    score_thr = float(gcfg.score_thr)
+    npoint_thr = float(gcfg.npoint_thr)
+    min_npoint = int(cfg.test_cfg.min_npoint)
+
+    active = ((scores.T > score_thr) & point_valid[None, :]
+              & ~ignore[:, None])                                 # (C, P)
+    counts = active.sum(dim=1)
+    active &= (counts >= min_npoint)[:, None]
+
+    # at most floor(1/score_thr) classes can clear score_thr per point (+1
+    # for softmax rounding), so a per-point top-k covers every entry
+    k_cand = min(n_cls, int(np.floor(1.0 / max(score_thr, 1e-6))) + 1)
+    shifted_pts = coords_float + pt_offsets.float()
+    wide_src = torch.cat([shifted_pts, batch_idxs.float()[:, None]], dim=1)
+    if k_cand < n_cls:
+        # stable descending sort = the reference's top_k (ties keep the
+        # lower class first)
+        top_s, top_c = torch.sort(scores, dim=1, descending=True,
+                                  stable=True)
+        top_s, top_c = top_s[:, :k_cand], top_c[:, :k_cand].to(torch.int32)
+        class_ok = (counts >= min_npoint) & ~ignore
+        cand = (top_s > score_thr) & point_valid[:, None] \
+            & class_ok[top_c.long()]
+        idx = compact_ascending(cand.reshape(-1), n_tot, p * k_cand)
+        valid_e = idx < p * k_cand
+        pt_e = torch.where(valid_e, idx // k_cand, p - 1)
+        wide = row_gather(wide_src, pt_e)
+        cls_e = torch.where(valid_e, row_gather(top_c.reshape(-1), idx), 0)
+    else:
+        idx = compact_ascending(active.reshape(-1), n_tot, n_cls * p)
+        valid_e = idx < n_cls * p
+        cls_e = torch.where(valid_e, idx // p, 0)
+        pt_e = torch.where(valid_e, idx % p, 0)
+        wide = row_gather(wide_src, pt_e)
+    shifted = wide[:, :3].contiguous()
+    group = wide[:, 3].to(torch.int32) * n_cls + cls_e
+
+    cell_scale = float(getattr_or(gcfg, 'cell_scale', 1.0))
+    thr_cls = torch.where(numpoint_mean == -1.0,
+                          torch.full_like(numpoint_mean, npoint_thr),
+                          npoint_thr * numpoint_mean)
+    ent_label, pt_sorted = cell_cluster_csr(
+        shifted, group, valid_e, pt_e, thr_cls, radius,
+        cell_scale=cell_scale, m_cap=caps.grouping_cells,
+        pair_keys=bool(getattr_or(gcfg, 'pair_keys', True)))
+    key = torch.where(ent_label >= 0, ent_label, INT_MAX)
+
+    # global static CSR
+    s_cap, p_max = caps.proposal_entries, caps.proposals
+    key_s, order = torch.sort(key, stable=True)
+    pt_s = pt_sorted[order]
+    valid_s = key_s != INT_MAX
+    prev = torch.cat([key_s.new_full((1,), -1), key_s[:-1]])
+    firsts = valid_s & (key_s != prev)
+    pid = torch.cumsum(firsts.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_proposals = (pid[-1] + 1).clamp(min=0, max=p_max)
+
+    entry_pt = pt_s[:s_cap]
+    pid = pid[:s_cap]
+    entry_valid = valid_s[:s_cap] & (pid < p_max) & (pid >= 0)
+    entry_seg = torch.where(entry_valid, pid, p_max).to(torch.int32)
+    prop_valid = torch.arange(p_max, device=dev) < n_proposals
+    return Proposals(entry_pt.to(torch.int32), entry_seg, entry_valid,
+                     n_proposals.to(torch.int32), prop_valid)
+
+
+# ---------------------------------------------------------------------------
+# Cluster re-voxelization (no parameters)
+# ---------------------------------------------------------------------------
+
+def clusters_voxelization(props: Proposals, feats: torch.Tensor,
+                          coords_float: torch.Tensor, scale: float,
+                          spatial_shape: int, caps: Any):
+    """Scale each proposal into a spatial_shape^3 grid and voxelize, with
+    the proposal id as the batch coordinate (inference: no random
+    quantization).  Returns (vox_feats, keyed levels, entry_p2v)."""
+    if spatial_shape % 2:
+        raise NotImplementedError('keyed levels need an even spatial_shape')
+    p_max = props.prop_valid.shape[0]
+    comb = row_gather(torch.cat([coords_float, feats.float()], dim=1),
+                      props.entry_pt)
+    coords, fe = comb[:, :3], comb[:, 3:]
+    seg = torch.where(props.entry_valid, props.entry_seg, p_max)
+
+    cmin = segment_min(coords, seg, p_max)
+    cmax = segment_max(coords, seg, p_max)
+    extent = (cmax - cmin).amax(dim=1)
+    clusters_scale = 1.0 / (extent / spatial_shape).clamp(min=1e-12) - 0.01
+    clusters_scale = clusters_scale.clamp(max=scale)
+
+    cmin_s = cmin * clusters_scale[:, None]
+    par = torch.cat([clusters_scale[:, None], cmin_s], dim=1)
+    pe = par[seg.long().clamp(0, p_max - 1)]
+    grid = coords * pe[:, :1] - pe[:, 1:]
+    grid = torch.floor(grid).clamp(0, spatial_shape - 1).to(torch.int32)
+    c4 = torch.cat([seg[:, None].to(torch.int32), grid], dim=1)
+
+    dims = (spatial_shape,) * 3
+    vx, ckey = voxelize_linear(c4, props.entry_valid, dims,
+                               caps.inst_voxels[0])
+    vox_feats = segment_mean_fused(fe, vx.p2v, caps.inst_voxels[0])
+    levels = build_keyed_levels(vx, ckey, spatial_shape, caps.inst_voxels)
+    return vox_feats, levels, vx.p2v
+
+
+def build_keyed_levels(vx, ckey, spatial_shape: int,
+                       capacities: Sequence[int]):
+    """Two-level keyed geometry for the tiny U-Net: sorted key tables plus
+    the parent/tap maps of the inverse conv; the keyed conv kernel (K4)
+    resolves neighbours itself."""
+    d, dc = spatial_shape, (spatial_shape + 1) // 2
+    xyz = vx.vox_coords[:, 1:]
+    child_tap = ((xyz[:, 0] & 1) * 4 + (xyz[:, 1] & 1) * 2
+                 + (xyz[:, 2] & 1)).to(torch.int32)
+    parent_coords = torch.cat([vx.vox_coords[:, :1], xyz // 2], dim=1)
+    vx2, ckey2 = voxelize_linear(parent_coords, vx.vox_valid, (dc,) * 3,
+                                 capacities[1])
+    dev = ckey.device
+    lv0 = LevelGeom(vx.vox_coords, vx.vox_valid, None, None, vx2.p2v,
+                    child_tap, torch.tensor([d] * 3, device=dev), ckey=ckey,
+                    spatial_d=d)
+    lv1 = LevelGeom(vx2.vox_coords, vx2.vox_valid, None, None, None, None,
+                    torch.tensor([dc] * 3, device=dev), ckey=ckey2,
+                    spatial_d=dc)
+    return (lv0, lv1)

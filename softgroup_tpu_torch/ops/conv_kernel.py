@@ -1,0 +1,183 @@
+"""K1 and K4: sparse 3-D convolution as a gather-GEMM on Hopper.
+
+* K1 ``rulebook_conv`` — ``out[v] = sum_k feats[rules[k, v]] @ W[k]`` over
+  an explicit (K, V_out) rulebook (-1 adds zero).  Replaces
+  ``softgroup_tpu/ops/conv_kernel.py:_conv_kernel`` (driven by
+  ``_windowed_conv_core``): every backbone submanifold and k2s2 down conv.
+* K4 ``keyed_conv`` — the same conv with neighbours resolved in the kernel
+  from sorted linear keys ``((b*D + x)*D + y)*D + z`` on the proposal grid
+  (bounds-tested like ``conv_kernel.py:848-871``).  Replaces
+  ``conv_kernel.py:_keyed_kernel`` (driven by ``keyed_windowed_conv``):
+  the tiny refinement U-Net.
+
+Kernel source and design note: ``csrc/conv.cu``.  The TPU's windows,
+overflow corrections, bf16x3 split and transposed accumulator have no
+counterpart: the kernel reads the rules (or keys) directly.
+
+Both take bf16 or f32 features; weights are cast to the features' type,
+the sum is f32 and the output is rounded once to the features' type.  On
+a CUDA tensor the wrappers launch the kernel or raise; on a CPU tensor they
+take the plain versions below.
+"""
+
+from __future__ import annotations
+
+import itertools
+
+import torch
+
+from . import kernels
+
+INT_MAX = 2 ** 31 - 1
+# tap order: (dx+1)*9 + (dy+1)*3 + (dz+1) for subm, dx*4 + dy*2 + dz for down
+SUBM_OFFS = tuple(itertools.product((-1, 0, 1), repeat=3))
+DOWN_OFFS = tuple(itertools.product((0, 1), repeat=3))
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# csrc/conv.cu tiles: 64 output rows x 32 (Cout <= 32) or 64 channels
+_ROWS_PER_BLOCK = 64
+# a grid with fewer blocks than this (2 per SM of an H100) spreads its taps
+# over several blocks per tile (f32 partial slabs, summed by a second kernel)
+_FILL_BLOCKS = 264
+
+
+def _split_taps(v_out: int, cout: int, n_taps: int, like: torch.Tensor):
+    """(split, f32 partial scratch) for a conv launch."""
+    cols = 32 if cout <= 32 else 64
+    blocks = -(-v_out // _ROWS_PER_BLOCK) * -(-cout // cols)
+    split = 1 if blocks >= _FILL_BLOCKS else \
+        min(n_taps, -(-_FILL_BLOCKS // max(blocks, 1)))
+    partial = torch.empty((split, v_out, cout) if split > 1 else (0,),
+                          dtype=torch.float32, device=like.device)
+    return split, partial
+
+
+def rulebook_conv_plain(feats: torch.Tensor, weight: torch.Tensor,
+                        rules: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1 (the reference's ``_conv_xla``): per-tap gather
+    of a zero-padded feature matrix, f32 product, f32 sum."""
+    v = feats.shape[0]
+    w = weight.to(feats.dtype).float()
+    padded = torch.cat([feats.float(),
+                        feats.new_zeros((1, feats.shape[1]),
+                                        dtype=torch.float32)])
+    acc = feats.new_zeros((rules.shape[1], w.shape[2]), dtype=torch.float32)
+    for k in range(rules.shape[0]):
+        idx = torch.where(rules[k] < 0, v, rules[k]).long()
+        acc += padded[idx] @ w[k]
+    return acc.to(feats.dtype)
+
+
+def _prep(what, feats, weight):
+    if feats.dtype not in _DTYPES:
+        raise ValueError(f'{what}: feats must be float32 or bfloat16, '
+                         f'got {feats.dtype}')
+    feats = feats.contiguous()
+    weight = weight.to(feats.dtype).contiguous()
+    if weight.shape[1] != feats.shape[1]:
+        raise ValueError(f'{what}: weight {tuple(weight.shape)} does not '
+                         f'match feats {tuple(feats.shape)}')
+    return feats, weight
+
+
+def rulebook_conv(feats: torch.Tensor, weight: torch.Tensor,
+                  rules: torch.Tensor) -> torch.Tensor:
+    """K1: feats (V_in, Cin), weight (K, Cin, Cout), rules (K, V_out) int
+    -> (V_out, Cout) in feats' dtype."""
+    if feats.device.type == 'cpu':
+        return rulebook_conv_plain(feats, weight, rules)
+    feats, weight = _prep('rulebook_conv', feats, weight)
+    rules = rules.to(torch.int32).contiguous()
+    kernels.require_cuda('rulebook_conv', feats, weight, rules)
+    if weight.shape[0] != rules.shape[0]:
+        raise ValueError('rulebook_conv: weight taps != rulebook taps')
+    k, cin, cout = weight.shape
+    v_out = rules.shape[1]
+    out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
+    split, partial = _split_taps(v_out, cout, k, feats)
+    rc = kernels.lib('conv').sg_rulebook_conv(
+        feats.data_ptr(), weight.data_ptr(), rules.data_ptr(), k, v_out,
+        cin, cout, out.data_ptr(),
+        _DTYPES[feats.dtype], split, partial.data_ptr(), kernels.stream())
+    kernels.check(rc, 'rulebook_conv')
+    rulebook_conv.launches += 1
+    return out
+
+
+rulebook_conv.launches = 0
+
+
+def rules_from_keys(out_keys: torch.Tensor, in_keys: torch.Tensor, d: int,
+                    strided: bool) -> torch.Tensor:
+    """(K, V_out) int32 rulebook by key lookup — the reference's
+    ``conv_kernel._rules_from_keys``.  ``d`` is the output grid's D (for
+    ``strided`` the coarse D; the fine grid is 2D)."""
+    ok = (out_keys >= 0) & (out_keys != INT_MAX)
+    key = torch.where(ok, out_keys, -1).to(torch.int32)
+    d2, d3 = d * d, d * d * d
+    zc, yc = key % d, (key // d) % d
+    xc, bc = (key // d2) % d, key // d3
+    far = torch.full_like(key, 2 ** 30)
+    qs = []
+    df = 2 * d
+    for dx, dy, dz in (DOWN_OFFS if strided else SUBM_OFFS):
+        if strided:
+            q = ((bc * df + 2 * xc + dx) * df + 2 * yc + dy) * df \
+                + 2 * zc + dz
+            t_ok = ok
+        else:
+            q = key + dx * d2 + dy * d + dz
+            t_ok = (ok & (xc + dx >= 0) & (xc + dx < d) & (yc + dy >= 0)
+                    & (yc + dy < d) & (zc + dz >= 0) & (zc + dz < d))
+        qs.append(torch.where(t_ok, q, far))
+    q = torch.stack(qs)                                   # (K, V_out)
+    tab = torch.where(in_keys == INT_MAX, 2 ** 30 - 1,
+                      in_keys).to(torch.int32).contiguous()
+    v_in = tab.shape[0]
+    pos = torch.searchsorted(tab, q.reshape(-1)).reshape(q.shape)
+    pc = pos.clamp(0, v_in - 1)
+    hit = (pos < v_in) & (tab[pc] == q)
+    return torch.where(hit, pc, -1).to(torch.int32)
+
+
+def keyed_conv_plain(feats, weight, out_keys, in_keys, d: int,
+                     strided: bool) -> torch.Tensor:
+    """Plain version of K4: explicit rulebook, then the plain K1."""
+    return rulebook_conv_plain(
+        feats, weight, rules_from_keys(out_keys, in_keys, d, strided))
+
+
+def keyed_conv(feats: torch.Tensor, weight: torch.Tensor,
+               out_keys: torch.Tensor, in_keys: torch.Tensor, d: int,
+               strided: bool) -> torch.Tensor:
+    """K4: conv over sorted key tables (INT_MAX padded).
+
+    Submanifold (``strided=False``): out_keys == in_keys, weight (27, C, C'),
+    ``d`` the grid's D.  k2s2 down (``strided=True``): out_keys on the
+    coarse grid of D = ``d``, in_keys on the fine grid of 2D, weight
+    (8, C, C').  Returns (len(out_keys), Cout) in feats' dtype."""
+    if feats.device.type == 'cpu':
+        return keyed_conv_plain(feats, weight, out_keys, in_keys, d, strided)
+    feats, weight = _prep('keyed_conv', feats, weight)
+    out_keys = out_keys.to(torch.int32).contiguous()
+    in_keys = in_keys.to(torch.int32).contiguous()
+    kernels.require_cuda('keyed_conv', feats, weight, out_keys, in_keys)
+    if weight.shape[0] != (8 if strided else 27):
+        raise ValueError('keyed_conv: weight taps do not match the conv')
+    if in_keys.shape[0] != feats.shape[0]:
+        raise ValueError('keyed_conv: one input key per feature row')
+    _, cin, cout = weight.shape
+    v_out = out_keys.shape[0]
+    out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
+    split, partial = _split_taps(v_out, cout, weight.shape[0], feats)
+    rc = kernels.lib('conv').sg_keyed_conv(
+        feats.data_ptr(), weight.data_ptr(), out_keys.data_ptr(),
+        in_keys.data_ptr(), feats.shape[0], v_out, cin, cout, int(d),
+        int(strided), out.data_ptr(), _DTYPES[feats.dtype], split,
+        partial.data_ptr(), kernels.stream())
+    kernels.check(rc, 'keyed_conv')
+    keyed_conv.launches += 1
+    return out
+
+
+keyed_conv.launches = 0

@@ -1,0 +1,122 @@
+"""Grid pyramid: the multi-level sparse geometry of one U-Net pass
+(counterpart of ``softgroup_tpu/ops/geometry.py``).
+
+Geometry depends only on coordinates, so the host builds the backbone
+pyramid once per batch (numpy) and the network forward only gathers.
+Level l is the U-Net recursion depth l: its voxels, the 3^3 rulebook shared
+by every conv of the level, and the k2s2 maps to level l+1 and back.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from .rulebook import build_downsample_np, build_subm_rules_np
+from .voxelize import voxelize_np
+
+
+@dataclass
+class LevelGeom:
+    """Static-capacity geometry of one pyramid level.
+
+    Two encodings of the neighbour structure: explicit rulebooks
+    (``subm_rules`` / ``down_rules``, host-built for the backbone) or a
+    sorted linear-key table (``ckey`` + ``spatial_d``, device-built for
+    proposal grids; the keyed conv kernel resolves neighbours itself)."""
+    vox_coords: torch.Tensor            # (V, 4) int32
+    vox_valid: torch.Tensor             # (V,) bool
+    subm_rules: torch.Tensor | None     # (27, V) int32, -1 = missing
+    down_rules: torch.Tensor | None     # (8, V_next) int32 into this level
+    parent_idx: torch.Tensor | None     # (V,) int32 (V_next if invalid)
+    child_tap: torch.Tensor | None      # (V,) int32 in [0, 8)
+    dims: torch.Tensor                  # (3,) int32 spatial extent
+    ckey: torch.Tensor | None = None    # (V,) sorted keys (keyed levels)
+    spatial_d: int = 0
+
+    def to(self, device) -> 'LevelGeom':
+        return replace(self, **{
+            k: getattr(self, k).to(device) for k in (
+                'vox_coords', 'vox_valid', 'subm_rules', 'down_rules',
+                'parent_idx', 'child_tap', 'dims', 'ckey')
+            if getattr(self, k) is not None})
+
+
+@dataclass
+class Pyramid:
+    levels: tuple[LevelGeom, ...]
+    p2v: torch.Tensor            # (P,) int32 point -> level-0 voxel (cap: pad)
+    point_valid: torch.Tensor    # (P,) bool
+
+    def to(self, device) -> 'Pyramid':
+        return Pyramid(tuple(lv.to(device) for lv in self.levels),
+                       self.p2v.to(device), self.point_valid.to(device))
+
+
+def build_pyramid_np(coords: np.ndarray, dims: np.ndarray, num_levels: int,
+                     capacities: Sequence[int] | None = None) -> Pyramid:
+    """Host pyramid builder (numpy).  With ``capacities`` every per-level
+    array is padded to its static capacity.  Returns CPU tensors."""
+    vox_coords, p2v, _ = voxelize_np(np.asarray(coords))
+    n_pts = len(p2v)
+    levels = []
+    cur = vox_coords
+    cur_dims = np.asarray(dims, np.int64)
+    for lvl in range(num_levels):
+        cap = capacities[lvl] if capacities is not None else len(cur)
+        if len(cur) > cap:
+            raise ValueError(
+                f"level {lvl}: {len(cur)} voxels exceed capacity {cap}")
+        subm = build_subm_rules_np(cur, cur_dims)
+        if lvl + 1 < num_levels:
+            nxt, down_rules, parent_idx, child_tap = build_downsample_np(cur)
+            cap_next = (capacities[lvl + 1] if capacities is not None
+                        else len(nxt))
+            if len(nxt) > cap_next:
+                raise ValueError(
+                    f"level {lvl + 1}: {len(nxt)} voxels exceed {cap_next}")
+            levels.append(_pad_level(cur, subm, down_rules, parent_idx,
+                                     child_tap, cap, cap_next, cur_dims))
+            cur = nxt
+            cur_dims = (cur_dims + 1) // 2
+        else:
+            levels.append(_pad_level(cur, subm, None, None, None, cap, 0,
+                                     cur_dims))
+    cap0 = capacities[0] if capacities is not None else len(vox_coords)
+    return Pyramid(
+        levels=tuple(levels),
+        p2v=torch.from_numpy(np.minimum(p2v, cap0).astype(np.int32)),
+        point_valid=torch.ones((n_pts,), dtype=torch.bool),
+    )
+
+
+def _pad_level(vc, subm, down_rules, parent_idx, child_tap, cap, cap_next,
+               dims) -> LevelGeom:
+    m = len(vc)
+
+    def pad2(a, cap1, fill):
+        out = np.full((a.shape[0], cap1), fill, a.dtype)
+        out[:, :a.shape[1]] = a
+        return torch.from_numpy(out)
+
+    def pad1(a, cap1, fill):
+        out = np.full((cap1,), fill, a.dtype)
+        out[:len(a)] = a
+        return torch.from_numpy(out)
+
+    vcp = np.zeros((cap, 4), np.int32)
+    vcp[:m] = vc
+    return LevelGeom(
+        vox_coords=torch.from_numpy(vcp),
+        vox_valid=torch.from_numpy(np.arange(cap) < m),
+        subm_rules=pad2(subm, cap, -1),
+        down_rules=None if down_rules is None
+        else pad2(down_rules, cap_next, -1),
+        parent_idx=None if parent_idx is None else pad1(
+            parent_idx.astype(np.int32), cap, cap_next),
+        child_tap=None if child_tap is None else pad1(child_tap, cap, 0),
+        dims=torch.from_numpy(np.asarray(dims, np.int32)),
+    )

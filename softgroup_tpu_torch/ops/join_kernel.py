@@ -1,0 +1,89 @@
+"""K3: the neighbour-cell join of soft grouping.
+
+Replaces ``softgroup_tpu/ops/join_kernel.py:_join_kernel`` (driven by
+``cell_neighbor_join``), called from ``grouping._cell_core`` on
+``pair_keys=False`` configs.  Kernel source and design note:
+``csrc/join.cu``.
+
+On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
+it takes the plain version below, which follows the reference's XLA path
+(searchsorted join, then the centroid gate, ``ops/grouping.py:275-288``).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import kernels
+
+INT_MAX = 2 ** 31 - 1
+
+
+def radius_sq(radius: float) -> float:
+    """radius * radius in f32, as the reference squares its f32 radius."""
+    r = np.float32(radius)
+    return float(r * r)
+
+
+def cell_neighbor_join_plain(table_keys, centroid, ccoord, dims, offs,
+                             radius) -> torch.Tensor:
+    """(R, m) int32: see ``cell_neighbor_join``."""
+    m = table_keys.shape[0]
+    dev = table_keys.device
+    offs_t = torch.as_tensor(np.asarray(offs, np.int32), device=dev)
+    dims = dims.to(torch.int32)
+    d_lin = (offs_t[:, 0] * dims[1] + offs_t[:, 1]) * dims[2] + offs_t[:, 2]
+    ct = ccoord.T[None]                                  # (1, 3, m)
+    ok = ((table_keys != INT_MAX)[None, :]
+          & (offs_t[:, :, None] + ct >= 0).all(dim=1)
+          & (offs_t[:, :, None] <= dims[None, :, None] - 1 - ct).all(dim=1))
+    q = torch.where(ok, table_keys[None, :] + d_lin[:, None],
+                    torch.full_like(table_keys, INT_MAX)[None, :])
+    pos = torch.searchsorted(table_keys, q.reshape(-1)).reshape(q.shape)
+    pc = pos.clamp(0, m - 1)
+    hit = ok & (pos < m) & (table_keys[pc] == q)
+    # squared distance in the kernel's order: (dx*dx + dy*dy) + dz*dz
+    dx = centroid[:, 0][None, :] - centroid[:, 0][pc]
+    dy = centroid[:, 1][None, :] - centroid[:, 1][pc]
+    dz = centroid[:, 2][None, :] - centroid[:, 2][pc]
+    d2 = (dx * dx + dy * dy) + dz * dz
+    keep = hit & (d2 <= radius_sq(radius))
+    return torch.where(keep, pc, -1).to(torch.int32)
+
+
+def cell_neighbor_join(table_keys: torch.Tensor, centroid: torch.Tensor,
+                       ccoord: torch.Tensor, dims: torch.Tensor, offs,
+                       radius: float) -> torch.Tensor:
+    """cand[r, i] = j with table_keys[j] == table_keys[i] + dlin(r), the
+    bounds test ``0 <= ccoord[i] + offs[r] < dims`` passed, and
+    ``|centroid[i] - centroid[j]|^2 <= radius^2``; else -1.
+
+    table_keys: (m,) int32 linear cell keys ((x*dims1 + y)*dims2 + z, the
+    group folded into x), sorted, unique among valid rows, INT_MAX padded.
+    centroid (m, 3) f32; ccoord (m, 3) int32; dims (3,) int32 tensor (stays
+    on the device: no host sync); offs (R, 3) integer offsets.
+    Returns (R, m) int32.
+    """
+    if table_keys.device.type == 'cpu':
+        return cell_neighbor_join_plain(table_keys, centroid, ccoord, dims,
+                                        offs, radius)
+    dev = table_keys.device
+    keys = table_keys.to(torch.int32).contiguous()
+    cen = centroid.to(torch.float32).contiguous()
+    cc = ccoord.to(torch.int32).contiguous()
+    dm = dims.to(torch.int32).contiguous()
+    offs_t = torch.as_tensor(np.asarray(offs, np.int32), device=dev)
+    kernels.require_cuda('cell_neighbor_join', keys, cen, cc, dm, offs_t)
+    m, n_off = keys.shape[0], offs_t.shape[0]
+    out = torch.empty((n_off, m), dtype=torch.int32, device=dev)
+    rc = kernels.lib('join').sg_cell_join(
+        keys.data_ptr(), cen.data_ptr(), cc.data_ptr(), dm.data_ptr(),
+        offs_t.data_ptr(), n_off, m, radius_sq(radius), out.data_ptr(),
+        kernels.stream())
+    kernels.check(rc, 'cell_neighbor_join')
+    cell_neighbor_join.launches += 1
+    return out
+
+
+cell_neighbor_join.launches = 0

@@ -1,0 +1,1 @@
+"""util of the PyTorch/CUDA port (see the package docstring)."""

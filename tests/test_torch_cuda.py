@@ -1,0 +1,92 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Marked ``cuda``: a CUDA kernel has no interpret mode, so these skip
+on a machine without a card (run them there with
+``python -m pytest --noconftest tests/test_torch_cuda.py -q`` where JAX,
+which tests/conftest.py imports, is not installed; ``python3 chip_smoke.py``
+checks the same kernels at the main path's shapes)."""
+
+import numpy as np
+import pytest
+import torch
+
+from softgroup_tpu_torch.ops import conv_kernel as ck
+from softgroup_tpu_torch.ops import gather_kernel as gk
+from softgroup_tpu_torch.ops import join_kernel as jk
+from softgroup_tpu_torch.ops.grouping import offsets
+
+pytestmark = pytest.mark.cuda
+INT_MAX = 2 ** 31 - 1
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card: the kernels have no CPU mode')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device('cuda')
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('k,cin,cout', [(27, 6, 32), (27, 384, 192),
+                                        (8, 32, 64), (27, 224, 224)])
+def test_rulebook_conv(dev, dtype, k, cin, cout):
+    g = torch.Generator(device=dev).manual_seed(k + cin)
+    f = torch.randn(3000, cin, device=dev, generator=g).to(dtype)
+    w = (torch.randn(k, cin, cout, device=dev, generator=g) * 0.1).to(dtype)
+    r = torch.randint(-3000, 3000, (k, 2500), device=dev, generator=g).int()
+    got = ck.rulebook_conv(f, w, r).double()
+    want = ck.rulebook_conv_plain(f, w, r).double()
+    tol = (2.0 ** -7 if dtype == torch.bfloat16 else 2e-5) \
+        * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32,
+                                   torch.int32])
+def test_row_gather_exact(dev, dtype):
+    src = (torch.randn(5000, 35, device=dev) * 100).to(dtype)
+    idx = torch.randint(-10, 5010, (20000,), device=dev)
+    assert torch.equal(gk.row_gather(src, idx), gk.row_gather_plain(src, idx))
+
+
+def test_cell_join_exact(dev):
+    rng = np.random.RandomState(0)
+    m = 4096
+    cc = rng.randint(0, 30, (6000, 3))
+    key = np.unique((cc[:, 0] * 30 + cc[:, 1]) * 30 + cc[:, 2])[:m - 100]
+    keys = np.full(m, INT_MAX, np.int32)
+    keys[:len(key)] = key
+    coord = np.zeros((m, 3), np.int32)
+    coord[:len(key)] = np.stack([key // 900, (key // 30) % 30, key % 30], 1)
+    cen = ((coord + rng.rand(m, 3)) * 0.04).astype(np.float32)
+    args = [torch.from_numpy(a).to(dev) for a in (keys, cen, coord)]
+    dims = torch.tensor([32, 30, 30], dtype=torch.int32, device=dev)
+    got = jk.cell_neighbor_join(*args, dims, offsets(1), 0.04)
+    assert torch.equal(got, jk.cell_neighbor_join_plain(*args, dims,
+                                                        offsets(1), 0.04))
+    assert int((got >= 0).sum()) > 1000
+
+
+@pytest.mark.parametrize('strided', [False, True])
+def test_keyed_conv(dev, strided):
+    d = 10
+    fine = torch.unique(torch.randint(0, 8 * d ** 3, (3000,), device=dev))
+    keys = torch.full((4096,), INT_MAX, dtype=torch.int32, device=dev)
+    keys[:fine.shape[0]] = fine.int()
+    feats = torch.randn(4096, 32, device=dev).bfloat16()
+    if strided:
+        b, r = fine // d ** 3, fine % d ** 3
+        x, y, z = r // d ** 2, (r // d) % d, r % d
+        h = d // 2
+        coarse = torch.unique(((b * h + x // 2) * h + y // 2) * h + z // 2)
+        out_keys = torch.full((2048,), INT_MAX, dtype=torch.int32,
+                              device=dev)
+        out_keys[:coarse.shape[0]] = coarse.int()
+        w, dd = torch.randn(8, 32, 64, device=dev) * 0.1, h
+    else:
+        out_keys, w, dd = keys, torch.randn(27, 32, 64, device=dev) * 0.1, d
+    got = ck.keyed_conv(feats, w, out_keys, keys, dd, strided).double()
+    want = ck.keyed_conv_plain(feats, w, out_keys, keys, dd,
+                               strided).double()
+    assert float((got - want).abs().max()) <= \
+        2.0 ** -7 * max(1.0, float(want.abs().max()))

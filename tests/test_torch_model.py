@@ -1,0 +1,225 @@
+"""Parity of the PyTorch port's host batch, grouping, weights and whole
+``test_forward`` with the JAX reference on the CPU (the tiny config of
+tests/test_model.py with ``pair_keys=False``; the JAX net runs with
+``bf16=False`` and f32 matmul precision, the port on CPU tensors, so every
+kernel takes its plain version).
+
+Tolerances: host arrays, grouping and integer outputs exact; backbone and
+refinement f32 outputs at rtol/atol 1e-4 (same math, other summation
+order); proposals compared as point sets per proposal.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from softgroup_tpu.data.padding import build_scene_batch as jax_batch
+from softgroup_tpu.evaluation.postprocess import \
+    get_instances as jax_get_instances
+from softgroup_tpu.model.softgroup import Capacities as JCaps
+from softgroup_tpu.model.softgroup import SoftGroupNet as JNet
+from softgroup_tpu.model.softgroup import \
+    forward_grouping as jax_forward_grouping
+from softgroup_tpu_torch.data.padding import build_scene_batch
+from softgroup_tpu_torch.evaluation.postprocess import get_instances
+from softgroup_tpu_torch.model.softgroup import (Capacities, SoftGroupNet,
+                                                 forward_grouping)
+from softgroup_tpu_torch.util.convert import from_jax_variables
+
+from torch_helpers import (CAPS, TINY, TINY20, batch_args, logits_clear_of,
+                           tiny_cfg, tiny_data)
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(scope='module')
+def data():
+    return tiny_data()
+
+
+@pytest.fixture(scope='module')
+def batches(data):
+    tb = build_scene_batch(*batch_args(data), Capacities(**CAPS),
+                           num_levels=3, device='cpu')
+    jb = jax_batch(*batch_args(data), JCaps(**CAPS), num_levels=3)
+    return tb, jb
+
+
+@pytest.fixture(scope='module')
+def jax_model(batches):
+    _, jb = batches
+    cfg = tiny_cfg()
+    net = JNet(channels=8, num_blocks=3, semantic_classes=6,
+               instance_classes=4, bf16=False)
+    variables = jax.jit(lambda key, b: net.init(
+        key, b, cfg, JCaps(**CAPS), method=net.test_forward))(
+            jax.random.PRNGKey(0), jb)
+    variables = jax.tree.map(np.array, variables)   # writable copies
+    # a zero offset head keeps the shifted points on the 1/64 grid, so the
+    # grouping centroids are exact on both sides; push the running stats
+    # off their init values so the eval-mode BN is exercised
+    rng = np.random.RandomState(2)
+    params = variables['params']
+    params['offset_linear']['final_kernel'][:] = 0
+    params['offset_linear']['final_bias'][:] = 0
+    stats = jax.tree.map(
+        lambda a: (a + rng.rand(*a.shape).astype(np.float32) * 0.1),
+        variables['batch_stats'])
+    variables = dict(params=params, batch_stats=stats)
+    return net, variables
+
+
+def _arrays(tb, jb):
+    """(name, port array, reference array) of every batch field."""
+    yield 'p2v', tb.pyramid.p2v, jb.pyramid.p2v
+    yield 'point_valid', tb.pyramid.point_valid, jb.pyramid.point_valid
+    for i, (lv, jlv) in enumerate(zip(tb.pyramid.levels, jb.pyramid.levels)):
+        for f in ('vox_coords', 'vox_valid', 'subm_rules', 'down_rules',
+                  'parent_idx', 'child_tap', 'dims'):
+            a, b = getattr(lv, f), getattr(jlv, f)
+            assert (a is None) == (b is None), (i, f)
+            if a is not None:
+                yield f'{i}.{f}', a, b
+    for f in ('feats', 'coords_float', 'batch_idxs', 'semantic_labels',
+              'instance_labels', 'pt_offset_labels', 'instance_pointnum',
+              'instance_cls', 'instance_valid', 'vox_in', 'point_perm'):
+        yield f, getattr(tb, f), getattr(jb, f)
+
+
+def test_build_scene_batch_exact(batches):
+    tb, jb = batches
+    n = 0
+    for name, a, b in _arrays(tb, jb):
+        b = np.asarray(b)
+        a = a.numpy()
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+        n += 1
+    assert n == 2 + 3 * 7 - 3 + 11
+
+
+@pytest.mark.parametrize('cfg_dict', [TINY, TINY20], ids=['6cls', '20cls'])
+def test_forward_grouping_exact(batches, cfg_dict):
+    """Identical scores/offsets in -> identical CSR proposals out; the
+    20-class case (score_thr 0.2) runs the per-point top-k branch."""
+    tb, jb = batches
+    cfg = tiny_cfg(cfg_dict)
+    n_cls = cfg.semantic_classes
+    p = CAPS['points']
+    rng = np.random.RandomState(n_cls)
+    sem = logits_clear_of(rng, p, n_cls, cfg.grouping_cfg.score_thr)
+    # favour two thing classes so their classes clear the thresholds
+    sem[:, 2:4] += 1.5
+    off = (rng.randint(-3, 4, (p, 3)) / 64).astype(np.float32)
+    caps_j, caps_t = JCaps(**CAPS), Capacities(**CAPS)
+    ref = jax_forward_grouping(
+        jnp.asarray(sem), jnp.asarray(off), jb.batch_idxs, jb.coords_float,
+        jb.pyramid.point_valid, cfg, caps_j)
+    out = forward_grouping(torch.from_numpy(sem), torch.from_numpy(off),
+                           tb.batch_idxs, tb.coords_float,
+                           tb.pyramid.point_valid, cfg, caps_t)
+    assert int(ref.n_proposals) > 2
+    for f in ('entry_pt', 'entry_seg', 'entry_valid', 'n_proposals',
+              'prop_valid'):
+        np.testing.assert_array_equal(getattr(out, f).numpy(),
+                                      np.asarray(getattr(ref, f)),
+                                      err_msg=f)
+
+
+def test_from_jax_variables_round_trip(jax_model):
+    _, variables = jax_model
+    state = from_jax_variables(variables)
+    net = SoftGroupNet(channels=8, num_blocks=3, semantic_classes=6,
+                       instance_classes=4, bf16=False)
+    missing = net.load_state_dict(state, strict=True)
+    assert not missing.missing_keys and not missing.unexpected_keys
+    flat = dict(jax.tree_util.tree_flatten_with_path(variables)[0])
+    assert len(flat) == len(state) == len(net.state_dict())
+    for path, leaf in flat.items():
+        key = '.'.join(p.key for p in path[1:])
+        np.testing.assert_array_equal(net.state_dict()[key].numpy(),
+                                      np.asarray(leaf), err_msg=key)
+
+
+@pytest.fixture(scope='module')
+def forwards(batches, jax_model):
+    tb, jb = batches
+    jnet, variables = jax_model
+    cfg = tiny_cfg()
+    ref = jax.jit(lambda v, b: jnet.apply(v, b, cfg, JCaps(**CAPS),
+                                          method=jnet.test_forward))(
+        variables, jb)
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+    net = SoftGroupNet(channels=8, num_blocks=3, semantic_classes=6,
+                       instance_classes=4, bf16=False)
+    net.load_state_dict(from_jax_variables(variables))
+    out = net.eval().test_forward(tb, cfg, Capacities(**CAPS))
+    out = {k: v.numpy() for k, v in out.items()}
+    return out, ref
+
+
+def _proposal_sets(o):
+    ev = o['entry_valid']
+    props = {}
+    for s, pt in zip(o['entry_seg'][ev], o['entry_pt'][ev]):
+        props.setdefault(int(s), []).append(int(pt))
+    return {s: sorted(v) for s, v in props.items()}
+
+
+def test_test_forward_backbone(forwards):
+    out, ref = forwards
+    for k in ('semantic_scores', 'pt_offsets'):
+        np.testing.assert_allclose(out[k], ref[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    np.testing.assert_array_equal(out['semantic_preds'],
+                                  ref['semantic_preds'])
+
+
+def test_test_forward_proposals(forwards):
+    out, ref = forwards
+    assert int(ref['n_proposals']) > 0
+    assert int(out['n_proposals']) == int(ref['n_proposals'])
+    assert _proposal_sets(out) == _proposal_sets(ref)
+    for k in ('entry_pt', 'entry_seg', 'entry_valid'):
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+
+
+def test_test_forward_refinement(forwards):
+    out, ref = forwards
+    for k in ('cls_scores', 'iou_scores', 'mask_scores'):
+        np.testing.assert_allclose(out[k], ref[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+
+
+def test_get_instances_matches(forwards, batches):
+    out, _ = forwards
+    tb, _ = batches
+    cfg = tiny_cfg()
+    n = int(tb.pyramid.point_valid.sum())
+    mine = get_instances('s', out, n, cfg)
+    theirs = jax_get_instances('s', out, n, cfg)
+    assert mine == theirs and len(mine) > 0
+
+
+def test_port_imports_no_jax():
+    """The port and every submodule load without JAX or softgroup_tpu."""
+    code = (
+        'import importlib, pkgutil, sys\n'
+        'import softgroup_tpu_torch as p\n'
+        'for m in pkgutil.walk_packages(p.__path__, p.__name__ + "."):\n'
+        '    importlib.import_module(m.name)\n'
+        'bad = [m for m in sys.modules if m.split(".")[0] in\n'
+        '       ("jax", "jaxlib", "flax", "softgroup_tpu")]\n'
+        'assert not bad, bad\n'
+        'assert "softgroup_tpu_torch.entry" in sys.modules\n')
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run([sys.executable, '-c', code], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr

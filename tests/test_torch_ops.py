@@ -1,0 +1,261 @@
+"""Parity of the PyTorch port's ops with the JAX reference on the CPU.
+
+The same numpy inputs go through the JAX function (XLA path: Pallas
+kernels are off on the CPU) and the port's function (the plain PyTorch
+versions of the kernels, taken because the tensors lie on the CPU).
+Tolerances: integer outputs and gathers exact; f32 products at 1e-5
+(only the summation order differs).
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from softgroup_tpu.data.padding import build_scene_batch as jax_batch
+from softgroup_tpu.model.softgroup import Capacities as JCaps
+from softgroup_tpu_torch.data.padding import build_scene_batch
+from softgroup_tpu_torch.model.softgroup import Capacities
+from softgroup_tpu_torch.ops import conv_kernel as ck
+from softgroup_tpu_torch.ops import grouping as grp
+from softgroup_tpu_torch.ops import segment as seg
+from softgroup_tpu_torch.ops import sparse_conv as sc
+from softgroup_tpu_torch.ops import voxelize as vox
+from softgroup_tpu_torch.ops.gather_kernel import row_gather, row_gather_plain
+from softgroup_tpu_torch.ops.join_kernel import (cell_neighbor_join,
+                                                 cell_neighbor_join_plain)
+
+from torch_helpers import CAPS, batch_args, tiny_data
+
+torch.set_num_threads(1)
+# the reference's modules by path (softgroup_tpu.ops re-exports functions
+# under some module names)
+jck, jgrp, jseg, jsc, jvox = (
+    importlib.import_module(f'softgroup_tpu.ops.{m}') for m in (
+        'conv_kernel', 'grouping', 'segment', 'sparse_conv', 'voxelize'))
+INT_MAX = 2 ** 31 - 1
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a)))
+
+
+@pytest.fixture(scope='module')
+def batches():
+    data = tiny_data()
+    tb = build_scene_batch(*batch_args(data), Capacities(**CAPS),
+                           num_levels=3, device='cpu')
+    jb = jax_batch(*batch_args(data), JCaps(**CAPS), num_levels=3)
+    return tb, jb
+
+
+class TestSparseConv:
+
+    @pytest.mark.parametrize('level', [0, 1, 2])
+    @pytest.mark.parametrize('cin,cout', [(6, 8), (16, 8)])
+    def test_subm_conv(self, batches, level, cin, cout):
+        tb, jb = batches
+        rng = np.random.RandomState(level * 7 + cin)
+        rules = tb.pyramid.levels[level].subm_rules
+        v = rules.shape[1]
+        x = rng.randn(v, cin).astype(np.float32)
+        w = (rng.randn(27, cin, cout) * 0.2).astype(np.float32)
+        ref = jsc.subm_conv(jnp.asarray(x), jnp.asarray(w),
+                            jb.pyramid.levels[level].subm_rules)
+        out = sc.subm_conv(_t(x), _t(w), rules)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize('level', [0, 1])
+    def test_down_and_inverse_conv(self, batches, level):
+        tb, jb = batches
+        rng = np.random.RandomState(level)
+        lv, jlv = tb.pyramid.levels[level], jb.pyramid.levels[level]
+        vf = lv.vox_valid.shape[0]
+        vc = lv.down_rules.shape[1]
+        x = rng.randn(vf, 8).astype(np.float32)
+        w = (rng.randn(8, 8, 16) * 0.2).astype(np.float32)
+        ref = jsc.down_conv(jnp.asarray(x), jnp.asarray(w), jlv.down_rules)
+        out = sc.down_conv(_t(x), _t(w), lv.down_rules)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)
+        y = rng.randn(vc, 16).astype(np.float32)
+        wu = (rng.randn(8, 16, 8) * 0.2).astype(np.float32)
+        ref = jsc.inverse_conv(jnp.asarray(y), jnp.asarray(wu),
+                               jlv.parent_idx, jlv.child_tap)
+        out = sc.inverse_conv(_t(y), _t(wu), lv.parent_idx, lv.child_tap)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)
+
+    def test_linear(self):
+        rng = np.random.RandomState(3)
+        x = rng.randn(100, 12).astype(np.float32)
+        w = rng.randn(12, 5).astype(np.float32)
+        b = rng.randn(5).astype(np.float32)
+        ref = jsc.linear(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b))
+        np.testing.assert_allclose(sc.linear(_t(x), _t(w), _t(b)).numpy(),
+                                   np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+class TestGather:
+
+    def test_devoxelize(self, batches):
+        tb, jb = batches
+        rng = np.random.RandomState(5)
+        v0 = tb.pyramid.levels[0].vox_valid.shape[0]
+        x = rng.randn(v0, 8).astype(np.float32)
+        ref = jvox.devoxelize(jnp.asarray(x), jb.pyramid.p2v)
+        np.testing.assert_array_equal(
+            vox.devoxelize(_t(x), tb.pyramid.p2v).numpy(), np.asarray(ref))
+
+    @pytest.mark.parametrize('dtype', [np.float32, np.int32])
+    def test_row_gather_plain(self, dtype):
+        rng = np.random.RandomState(6)
+        src = (rng.randn(300, 4) * 100).astype(dtype)
+        idx = rng.randint(-5, 310, size=1000).astype(np.int32)
+        want = src[np.clip(idx, 0, 299)]
+        np.testing.assert_array_equal(row_gather_plain(_t(src), _t(idx)),
+                                      want)
+        np.testing.assert_array_equal(row_gather(_t(src), _t(idx)), want)
+
+
+def _keyed_tables(rng, d, n_prop, v_cap):
+    """Sorted fine (2d grid) and coarse (d grid) key tables, INT_MAX
+    padded, of random voxels in n_prop proposals."""
+    df = 2 * d
+    b = rng.randint(0, n_prop, 900)
+    xyz = rng.randint(0, df, (900, 3))
+    fine = np.unique(((b * df + xyz[:, 0]) * df + xyz[:, 1]) * df
+                     + xyz[:, 2])
+    fb, fz = fine // df ** 3, fine % df
+    fy, fx = (fine // df) % df, (fine // df ** 2) % df
+    coarse = np.unique(((fb * d + fx // 2) * d + fy // 2) * d + fz // 2)
+
+    def pad(k, cap):
+        out = np.full(cap, INT_MAX, np.int32)
+        out[:len(k)] = k
+        return out
+    return pad(fine, v_cap), pad(coarse, v_cap)
+
+
+class TestKeyedConv:
+
+    @pytest.mark.parametrize('strided', [False, True])
+    def test_keyed_conv_plain(self, strided):
+        rng = np.random.RandomState(11)
+        d = 5
+        fine, coarse = _keyed_tables(rng, d, 6, 1024)
+        if strided:
+            out_k, in_k, dd, k = coarse, fine, d, 8
+            offs = jck._DOWN_OFFS
+        else:
+            out_k, in_k, dd, k = fine, fine, 2 * d, 27
+            offs = jck._SUBM_OFFS
+        x = rng.randn(len(in_k), 8).astype(np.float32)
+        w = (rng.randn(k, 8, 16) * 0.2).astype(np.float32)
+        jrules = jck._rules_from_keys(jnp.asarray(out_k), jnp.asarray(in_k),
+                                      dd, offs, strided)
+        rules = ck.rules_from_keys(_t(out_k), _t(in_k), dd, strided)
+        np.testing.assert_array_equal(rules.numpy(), np.asarray(jrules))
+        assert (rules >= 0).sum() > len(out_k) // 4
+        ref = jsc._conv_xla(jnp.asarray(x), jnp.asarray(w), jrules,
+                            jnp.float32)
+        out = ck.keyed_conv(_t(x), _t(w), _t(out_k), _t(in_k), dd, strided)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-5)
+
+
+class TestVoxelizeSegment:
+
+    def test_voxelize_linear(self):
+        rng = np.random.RandomState(12)
+        c = np.concatenate([rng.randint(0, 7, (3000, 1)),
+                            rng.randint(0, 10, (3000, 3))], 1).astype(np.int32)
+        valid = rng.rand(3000) < 0.9
+        for cap in (1024, 4096):   # truncating and padded
+            jv, jk = jvox.voxelize_linear(jnp.asarray(c), jnp.asarray(valid),
+                                          jnp.asarray([10, 10, 10]), cap)
+            tv, tk = vox.voxelize_linear(_t(c), _t(valid), (10, 10, 10), cap)
+            np.testing.assert_array_equal(tk.numpy(), np.asarray(jk))
+            for a, b in zip(tv, jv):
+                np.testing.assert_array_equal(np.asarray(a.numpy()),
+                                              np.asarray(b))
+
+    def test_segment_reductions(self):
+        rng = np.random.RandomState(13)
+        x = rng.randn(1024, 3).astype(np.float32)
+        ids = np.sort(rng.randint(0, 40, 1024)).astype(np.int32)
+        ids[-50:] = 32                      # dustbin tail, segments 0..31
+        mn, mx = jseg.sorted_segment_minmax(jnp.asarray(x), jnp.asarray(ids),
+                                            32)
+        np.testing.assert_array_equal(seg.segment_min(_t(x), _t(ids), 32),
+                                      np.asarray(mn))
+        np.testing.assert_array_equal(seg.segment_max(_t(x), _t(ids), 32),
+                                      np.asarray(mx))
+        np.testing.assert_allclose(
+            seg.segment_mean_fused(_t(x), _t(ids), 32).numpy(),
+            np.asarray(jseg.segment_mean_fused(jnp.asarray(x),
+                                               jnp.asarray(ids), 32)),
+            rtol=1e-5, atol=1e-6)
+
+
+class TestGrouping:
+
+    def test_cell_join_plain_matches_reference(self):
+        """The K3 plain version against the reference's XLA join + gate."""
+        from softgroup_tpu.ops.join_kernel import xla_cell_join
+        rng = np.random.RandomState(14)
+        m = 512
+        cc = rng.randint(0, 12, (700, 3))
+        key = np.unique((cc[:, 0] * 12 + cc[:, 1]) * 12 + cc[:, 2])[:m - 40]
+        keys = np.full(m, INT_MAX, np.int32)
+        keys[:len(key)] = key
+        coord = np.zeros((m, 3), np.int32)
+        coord[:len(key)] = np.stack([key // 144, (key // 12) % 12, key % 12],
+                                    1)
+        cen = ((coord + rng.rand(m, 3)) / 64).astype(np.float32)
+        dims = np.array([12, 12, 12], np.int32)
+        offs = grp.offsets(1)
+        ref = xla_cell_join(jnp.asarray(keys), jnp.asarray(cen),
+                            jnp.asarray(coord), jnp.asarray(dims), offs,
+                            jnp.float32(0.02))
+        out = cell_neighbor_join(_t(keys), _t(cen), _t(coord), _t(dims),
+                                 offs, 0.02)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+        np.testing.assert_array_equal(
+            cell_neighbor_join_plain(_t(keys), _t(cen), _t(coord), _t(dims),
+                                     offs, 0.02).numpy(), np.asarray(ref))
+        assert (out >= 0).sum() > 100
+
+    @pytest.mark.parametrize('m_cap', [512, 4096])
+    def test_cell_cluster_csr(self, m_cap):
+        """Same sorted labels and payload; m_cap=512 truncates cells."""
+        rng = np.random.RandomState(15)
+        n = 4096
+        centers = rng.rand(12, 3) * 3
+        pts = centers[rng.randint(0, 12, n)] + rng.randn(n, 3) * 0.08
+        pts = (np.round(pts * 64) / 64).astype(np.float32)
+        group = rng.randint(0, 8, n).astype(np.int32)
+        valid = rng.rand(n) < 0.95
+        payload = rng.permutation(n).astype(np.int32)
+        thr = np.full(4, 5.0, np.float32)
+        jl, jp = jgrp.cell_cluster_csr(
+            jnp.asarray(pts), jnp.asarray(group), jnp.asarray(valid),
+            jnp.asarray(payload), jnp.asarray(thr), jnp.float32(0.1),
+            cell_scale=1.0, m_cap=m_cap, pair_keys=False)
+        tl, tp = grp.cell_cluster_csr(
+            _t(pts), _t(group), _t(valid), _t(payload), _t(thr), 0.1,
+            cell_scale=1.0, m_cap=m_cap, pair_keys=False)
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+        assert len(np.unique(tl.numpy()[tl.numpy() >= 0])) > 5
+
+    def test_pair_keys_not_ported(self):
+        z = torch.zeros((4, 3))
+        with pytest.raises(NotImplementedError):
+            grp.cell_cluster_csr(z, torch.zeros(4, dtype=torch.int32),
+                                 torch.ones(4, dtype=torch.bool),
+                                 torch.zeros(4, dtype=torch.int32),
+                                 torch.ones(1), 0.1, pair_keys=True)
