@@ -3,18 +3,28 @@
 
     python3 chip_smoke.py
 
-Phases (each prints its own lines; any failure exits non-zero):
+Phases (each prints its own lines and its seconds; any failure exits
+non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc per
      source, in parallel) and print the build time;
-  2. a warm-up request of the flagship model records the arguments each
-     kernel gets on the main path; each kernel is then held against its
-     plain PyTorch version on those inputs (max-abs error, tolerance,
-     kernel / plain / library ms, and the bound of the card);
-  3. the main path: >= 3 requests (host batch -> test_forward on the card
-     -> get_instances) of 250k-point rooms at full flagship width, with
-     every launch counter set to 0 just before and read just after;
-  4. a small input through the card (f32) against the same port on the CPU
-     (plain PyTorch versions of every kernel).
+  2. a warm-up request of the flagship model and a warm-up all-params train
+     step record the arguments each kernel gets on the two main paths; each
+     kernel is then held against its plain PyTorch version on those inputs
+     (max-abs error, tolerance, kernel / plain / library ms, and the bound
+     of the card);
+  3. the serving path: >= 3 requests (host batch -> test_forward on the
+     card -> get_instances) of 250k-point rooms at full flagship width, with
+     every launch counter set to 0 just before and read just after, then
+     one request under the profiler;
+  4. the training path: the flagship ScanNet train step (the yaml's model
+     section, batch 4 x 250k-point rooms, bf16) in both modes of the recipe
+     (frozen backbone, then all params), 1 warm-up and 3 timed steps each,
+     counters set to 0 just before the timed steps and read just after,
+     then one all-params step under the profiler;
+  5. small inputs through the card (f32) against the same port on the CPU
+     (plain PyTorch versions of every kernel): a request, then a train step
+     held gradient leaf by gradient leaf against control runs
+     (``small_train_check``).
 The line before the last is one JSON object of per-kernel numbers; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -22,6 +32,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -30,7 +41,17 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 N_REQUESTS = 3
+TRAIN_STEPS = 3
+TRAIN_SEED0 = 200
 SEMANTIC_BIAS = 2.5
+# a train-step gradient leaf's card-vs-CPU gap over the same leaf's gap
+# with the plain versions on the card
+GRAD_CTRL_FACTOR = 4.0
+# a ReLU input that may change sides between the card and the CPU: within
+# rounding of 0 (inputs are O(1) after batch norm; the two agree to ~1e-6)
+KINK_BOUND = 1e-4
+FROZEN = 'frozen backbone'
+ALL = 'all params'
 
 
 def log(msg: str) -> None:
@@ -63,8 +84,16 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
+def bound(byts: float, flops: float, dtype) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_bytes = byts / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype).split('.')[-1]]
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                        else 'operations')
+
+
 class Recorder:
-    """Wraps the kernel wrappers at their call sites during one request and
+    """Wraps the kernel wrappers at their call sites during one run and
     keeps a clone of the arguments of every call."""
 
     def __init__(self, sites):
@@ -78,10 +107,13 @@ class Recorder:
             orig = getattr(mod, name)
 
             def wrapped(*args, _orig=orig, _name=name, **kw):
-                keep = [a.clone() if isinstance(a, torch.Tensor) else a
-                        for a in args]
+                keep = [a.detach().clone() if isinstance(a, torch.Tensor)
+                        else a for a in args]
                 self.calls.setdefault(_name, []).append((keep, kw))
                 return _orig(*args, **kw)
+            # a wrapper wrapped in its own module counts its launches on
+            # this stand-in (recording runs are not the counted main path)
+            wrapped.launches = 0
             self._saved.append((mod, name, orig))
             setattr(mod, name, wrapped)
         return self
@@ -89,6 +121,44 @@ class Recorder:
     def __exit__(self, *exc):
         for mod, name, orig in self._saved:
             setattr(mod, name, orig)
+
+
+def pick(calls, pred, what):
+    for args, kw in calls:
+        if pred(args, kw):
+            return args, kw
+    raise RuntimeError(f'no recorded call for {what}')
+
+
+def profile(fn, label: str, card: str) -> None:
+    """Wall time, device busy time, idle share and the top 12 kernels of
+    one run of ``fn`` under the profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:   # kernels only, no ops
+            continue
+        us = getattr(ev, 'self_device_time_total', None)
+        if us is None:
+            us = getattr(ev, 'self_cuda_time_total', 0.0)
+        if us > 0:
+            rows.append((us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    log(f'[profile] {label}: wall {wall_ms:.3f} ms, device busy '
+        f'{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f} '
+        f'(profiler on) [{card}]')
+    for ms_, count, key in rows[:12]:
+        log(f'[profile]   {ms_:9.3f} ms  x{count:<5d} {key[:90]}')
 
 
 def main() -> int:
@@ -115,7 +185,7 @@ def main() -> int:
         from softgroup_tpu_torch.ops import gather_kernel as gk
         from softgroup_tpu_torch.ops import grouping, kernels
         from softgroup_tpu_torch.ops import join_kernel as jk
-        from softgroup_tpu_torch.ops import sparse_conv, voxelize
+        from softgroup_tpu_torch.ops import rulebook, sparse_conv
     except ImportError as e:
         print(f'chip_smoke: the port is not importable here: {e}',
               file=sys.stderr)
@@ -126,6 +196,13 @@ def main() -> int:
     dev = 'cuda'
     kind = torch.cuda.get_device_name(0)
     card = card_line()
+    t_phase = time.perf_counter()
+
+    def phase_done(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        log(f'[phase] {name}: {now - t_phase:.3f} s')
+        t_phase = now
 
     # ---- phase 1: build ------------------------------------------------
     t0 = time.perf_counter()
@@ -135,13 +212,19 @@ def main() -> int:
 
     cfg = entry.flagship_cfg()
     caps = entry.bench_capacities()
-    net = entry.build_net(cfg, seed=0, device=dev, bf16=True)
-    # a random init leaves the 20-way softmax near 1/20 < score_thr 0.2, so
-    # grouping and refinement would run on nothing: lift two non-ignored
-    # classes (2 and 3) to ~0.29 each through the semantic head's final
-    # bias.  Every other flagship setting is kept.
-    with torch.no_grad():
-        net.semantic_linear.final_bias[2:4] = SEMANTIC_BIAS
+    tcfg = entry.train_cfg()
+    tcaps = entry.train_capacities()
+
+    def lift(net):
+        # a random init leaves the 20-way softmax near 1/20 < score_thr
+        # 0.2, so grouping and refinement would run on nothing: lift two
+        # non-ignored classes (2 and 3) to ~0.29 each through the semantic
+        # head's final bias.  Every other flagship setting is kept.
+        with torch.no_grad():
+            net.semantic_linear.final_bias[2:4] = SEMANTIC_BIAS
+        return net
+
+    net = lift(entry.build_net(cfg, seed=0, device=dev, bf16=True))
 
     def make_request(seed):
         t = time.perf_counter()
@@ -152,11 +235,27 @@ def main() -> int:
         host_ms = (time.perf_counter() - t) * 1e3
         return batch, host_ms
 
+    def make_train_batch(i):
+        """Batch ``i``: 4 rooms of 250k points from seeds 200 + 4i ...;
+        returns (batch, host ms)."""
+        t = time.perf_counter()
+        scenes = [make_room_scene(np.random.RandomState(
+            TRAIN_SEED0 + 4 * i + j), n_points=250000, n_instances=12)
+            for j in range(4)]
+        batch = entry.build_train_batch(scenes, tcfg, tcaps, device=dev)
+        torch.cuda.synchronize()
+        return batch, (time.perf_counter() - t) * 1e3
+
+    def train_state(frozen):
+        return entry.build_train_state(
+            lift(entry.build_net(tcfg, seed=0, device=dev, bf16=True)), tcfg,
+            tcaps, frozen)
+
     # ---- phase 2: each kernel against its plain version ----------------
     batch, host_ms = make_request(0)
     log(f'[warmup] host batch of a 250k-point room: {host_ms:.3f} ms')
     sites = [(sparse_conv, 'rulebook_conv'), (blocks, 'keyed_conv'),
-             (voxelize, 'row_gather'), (grouping, 'row_gather'),
+             (gk, 'row_gather'), (grouping, 'row_gather'),
              (sg, 'row_gather'), (grouping, 'cell_neighbor_join')]
     with Recorder(sites) as rec:
         out = entry.infer(net, batch, cfg, caps)
@@ -166,29 +265,39 @@ def main() -> int:
     if n_prop0 <= 0:
         raise RuntimeError('warm-up request produced no proposals')
 
+    train_batches = [make_train_batch(i) for i in range(TRAIN_STEPS + 1)]
+    log(f'[warmup] {len(train_batches)} host batches of 4 x 250k points: '
+        f'{[round(b[1], 3) for b in train_batches]} ms')
+    state = train_state(())
+    with Recorder([(sparse_conv, 'rulebook_conv_dw'),
+                   (gk, 'sorted_segment_sum'),
+                   (rulebook, 'sorted_key_rules_join')]) as trec:
+        logs = state.step(train_batches[0][0],
+                          generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+    log(f'[warmup] all-params train step done: loss='
+        f'{float(logs["loss"]):.6f} num_pos={float(logs["num_pos"]):.0f} '
+        f'num_neg={float(logs["num_neg"]):.0f}')
+    del state
+
     conv_calls = rec.calls['rulebook_conv']
     keyed_calls = rec.calls['keyed_conv']
     gather_calls = rec.calls['row_gather']
     join_calls = rec.calls['cell_neighbor_join']
-
-    def pick(calls, pred, what):
-        for args, kw in calls:
-            if pred(args, kw):
-                return args, kw
-        raise RuntimeError(f'no recorded call for {what}')
+    dw_calls = trec.calls['rulebook_conv_dw']
+    segsum_calls = trec.calls['sorted_segment_sum']
+    rules_calls = trec.calls['sorted_key_rules_join']
 
     v0 = caps.voxels[0]
-    cases = []   # (name, kernel key, fn, plain, library, tol, reason, bound)
+    cases = []
 
     def conv_case(label, args, dtype):
         feats, w, rules = args
         feats, w = feats.to(dtype), w.to(dtype)
         hits = int((rules >= 0).sum())
         flops = 2.0 * hits * w.shape[1] * w.shape[2]
-        byts = nbytes(feats, w.to(dtype), rules) \
+        byts = nbytes(feats, w, rules) \
             + rules.shape[1] * w.shape[2] * feats.element_size()
-        peak = PEAK_FLOPS[str(dtype).split('.')[-1]]
-        bound = max(byts / HBM_BYTES_PER_S, flops / peak) * 1e3
         tol_rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-5
         cases.append(dict(
             name=f'K1 rulebook_conv {label}', key='rulebook_conv',
@@ -199,8 +308,7 @@ def main() -> int:
             library=None, tol_rel=tol_rel,
             reason=('f32 sums in another order, one rounding of the output '
                     f'to {dtype}: {tol_rel:g} x max|plain|'),
-            bound_ms=bound, bound_by='bytes' if byts / HBM_BYTES_PER_S
-            >= flops / peak else 'operations'))
+            bound=bound(byts, flops, dtype)))
 
     l0_subm = pick(conv_calls, lambda a, k: a[2].shape == (27, v0)
                    and a[1].shape[1:] == (32, 32), 'L0 subm 32->32')[0]
@@ -232,7 +340,8 @@ def main() -> int:
             plain=lambda: gk.row_gather_plain(src, idx),
             library=lambda: torch.index_select(src, 0, idx_l),
             tol_rel=0.0, reason='a copy: exact',
-            bound_ms=byts / HBM_BYTES_PER_S * 1e3, bound_by='bytes'))
+            bound=bound(byts, 0.0, src.dtype if src.is_floating_point()
+                        else torch.float32)))
 
     gather_case('devoxelize (V0, 32) bf16', pick(
         gather_calls, lambda a, k: a[0].dtype == torch.bfloat16
@@ -246,7 +355,6 @@ def main() -> int:
 
     keys, cen, cc, dims, offs, radius = join_calls[0][0]
     m = keys.shape[0]
-    join_bytes = nbytes(keys, cen, cc, dims) + len(offs) * m * 4
     cases.append(dict(
         name=f'K3 cell_neighbor_join m={m}', key='cell_neighbor_join',
         route='cuda', source='softgroup_tpu_torch/csrc/join.cu',
@@ -256,7 +364,8 @@ def main() -> int:
                                                   radius),
         library=None, tol_rel=0.0,
         reason='integer join, gate in the plain order without FMA: exact',
-        bound_ms=join_bytes / HBM_BYTES_PER_S * 1e3, bound_by='bytes'))
+        bound=bound(nbytes(keys, cen, cc, dims) + len(offs) * m * 4, 0.0,
+                    torch.float32)))
 
     def keyed_case(label, args, kw):
         feats, w, out_keys, in_keys, d = args
@@ -266,7 +375,6 @@ def main() -> int:
         flops = 2.0 * hits * w.shape[1] * w.shape[2]
         byts = nbytes(feats, w, out_keys, in_keys) \
             + out_keys.shape[0] * w.shape[2] * feats.element_size()
-        peak = PEAK_FLOPS[str(feats.dtype).split('.')[-1]]
         cases.append(dict(
             name=f'K4 keyed_conv {label}', key='keyed_conv', route='cuda',
             source='softgroup_tpu_torch/csrc/conv.cu',
@@ -278,9 +386,7 @@ def main() -> int:
             library=None, tol_rel=2.0 ** -7,
             reason='f32 sums in another order, one bf16 rounding: '
                    '2^-7 x max|plain|',
-            bound_ms=max(byts / HBM_BYTES_PER_S, flops / peak) * 1e3,
-            bound_by='bytes' if byts / HBM_BYTES_PER_S >= flops / peak
-            else 'operations'))
+            bound=bound(byts, flops, feats.dtype)))
 
     keyed_case('subm D=20 32->32', *pick(
         keyed_calls, lambda a, k: not k['strided'] and a[4] == 20
@@ -288,7 +394,96 @@ def main() -> int:
     keyed_case('down D=10 32->64', *pick(
         keyed_calls, lambda a, k: k['strided'] and a[4] == 10,
         'keyed down D=10'))
-    del rec, out
+
+    def dw_case(label, args, dtype):
+        feats, g, rules = args
+        feats, g = feats.to(dtype), g.to(dtype)
+        hits = int((rules >= 0).sum())
+        k, cin, cout = rules.shape[0], feats.shape[1], g.shape[1]
+        flops = 2.0 * hits * cin * cout
+        byts = nbytes(feats, g, rules) + k * cin * cout * 4
+        cases.append(dict(
+            name=f'K5 rulebook_conv_dw {label}', key='rulebook_conv_dw',
+            route='cuda', source='softgroup_tpu_torch/csrc/conv.cu',
+            replaces='softgroup_tpu/ops/conv_kernel.py:1170',
+            fn=lambda: ck.rulebook_conv_dw(feats, g, rules),
+            plain=lambda: ck.rulebook_conv_dw_plain(feats, g, rules),
+            library=None, tol_rel=5e-4,
+            reason=('f32 sums of up to 8.5e5 exact products in another '
+                    'order (64-row MMA steps and slab sums vs one cuBLAS '
+                    'f32 GEMM per tap): ~eps*sqrt(steps) ~ 3e-6 of a sum, '
+                    'x10 for the worst entry, x10 margin: 5e-4 x '
+                    'max|plain|'),
+            bound=bound(byts, flops, dtype)))
+
+    tv0, tv1 = tcaps.voxels[0], tcaps.voxels[1]
+    l0_dw = pick(dw_calls, lambda a, k: a[2].shape == (27, tv0)
+                 and a[0].shape[1] == 32 and a[1].shape[1] == 32,
+                 'dW L0 subm 32->32')[0]
+    dw_case('L0 subm 32->32 bf16', l0_dw, torch.bfloat16)
+    dw_case('L0 subm 32->32 f32', l0_dw, torch.float32)
+    dw_case('L5 tail 384->192 bf16', pick(
+        dw_calls, lambda a, k: a[0].shape[1] == 384 and a[1].shape[1] == 192,
+        'dW 384->192')[0], torch.bfloat16)
+    dw_case('L6 subm 224->224 bf16', pick(
+        dw_calls, lambda a, k: a[0].shape[1] == 224 and a[1].shape[1] == 224,
+        'dW 224->224')[0], torch.bfloat16)
+    dw_case('L0->L1 (8, V1) 32->64 bf16', pick(
+        dw_calls, lambda a, k: a[2].shape == (8, tv1)
+        and a[0].shape[1] == 32 and a[1].shape[1] == 64, 'dW down L0')[0],
+        torch.bfloat16)
+    dw_case(f'tiny U-Net subm {tcaps.inst_voxels[0]} 32->32 bf16', pick(
+        dw_calls, lambda a, k: a[2].shape == (27, tcaps.inst_voxels[0])
+        and a[0].shape[1] == 32 and a[1].shape[1] == 32, 'dW tiny')[0],
+        torch.bfloat16)
+
+    def segsum_case(label, args):
+        values, seg, s = args
+        ok = (seg >= 0) & (seg < s)
+        seg_l, vals_f = seg[ok].long(), values[ok].float()
+        cases.append(dict(
+            name=f'K6 sorted_segment_sum {label}',
+            key='sorted_segment_sum', route='cuda',
+            source='softgroup_tpu_torch/csrc/gather.cu',
+            replaces='softgroup_tpu/ops/gather_kernel.py:149',
+            fn=lambda: gk.sorted_segment_sum(values, seg, s),
+            plain=lambda: gk.sorted_segment_sum_plain(values, seg, s),
+            library=lambda: torch.zeros(
+                (s, values.shape[1]), dtype=torch.float32,
+                device=values.device).index_add_(0, seg_l, vals_f),
+            tol_rel=1e-5,
+            reason=('f32 sums of a few rows in index order vs the plain '
+                    "index_add_'s atomics: 1e-5 x max|plain|"),
+            bound=bound(nbytes(values, seg) + s * values.shape[1] * 4, 0.0,
+                        values.dtype)))
+
+    segsum_case(f'devoxelize backward ({tcaps.points}, 32) bf16', pick(
+        segsum_calls, lambda a, k: a[0].dtype == torch.bfloat16
+        and a[0].shape[1] == 32, 'devoxelize backward')[0])
+    segsum_case('proposal-gather backward (S, 35) f32', pick(
+        segsum_calls, lambda a, k: a[0].shape[1] == 35,
+        'proposal-gather backward')[0])
+    mask_bwd = pick(segsum_calls, lambda a, k: a[0].shape[1] == 19,
+                    'mask-gather backward')[0]
+    segsum_case(f'mask-gather backward (S, 19) '
+                f'{str(mask_bwd[0].dtype).split(".")[-1]}', mask_bwd)
+
+    for m_ in tcaps.inst_voxels:
+        rkeys, rxyz, rdims, roffs = pick(
+            rules_calls, lambda a, k: a[0].shape[0] == m_, f'K7 m={m_}')[0]
+        cases.append(dict(
+            name=f'K7 sorted_key_rules_join m={m_}',
+            key='sorted_key_rules_join', route='cuda',
+            source='softgroup_tpu_torch/csrc/join.cu',
+            replaces='softgroup_tpu/ops/join_kernel.py:225',
+            fn=lambda a=(rkeys, rxyz, rdims, roffs):
+                jk.sorted_key_rules_join(*a),
+            plain=lambda a=(rkeys, rxyz, rdims, roffs):
+                jk.sorted_key_rules_join_plain(*a),
+            library=None, tol_rel=0.0, reason='integer join: exact',
+            bound=bound(nbytes(rkeys, rxyz, rdims) + len(roffs) * m_ * 4,
+                        0.0, torch.float32)))
+    del rec, trec, out
 
     results = []
     for c in cases:
@@ -306,27 +501,40 @@ def main() -> int:
         ms = cuda_ms(c['fn'])
         plain_ms = cuda_ms(c['plain'], reps=3, warm=1)
         lib_ms = cuda_ms(c['library']) if c['library'] else None
+        bound_ms, bound_by = c['bound']
         log(f"[kernel] {c['name']}: max_abs_err={err:.6g} tol={tol:.6g} "
             f"({c['reason']}) ms={ms:.6f} plain_ms={plain_ms:.6f} "
-            f"library_ms={lib_ms} bound_ms={c['bound_ms']:.6f} "
-            f"({c['bound_by']}) [{card}] {'OK' if ok else 'FAIL'}")
+            f"library_ms={lib_ms} bound_ms={bound_ms:.6f} "
+            f"({bound_by}) [{card}] {'OK' if ok else 'FAIL'}")
         if not ok:
             raise RuntimeError(f"{c['name']} disagrees with its plain "
                                f"version: {err} > {tol}")
         results.append(dict(
             name=c['name'], key=c['key'], route=c['route'],
             source=c['source'], replaces=c['replaces'], max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=c['bound_ms'],
-            bound_by=c['bound_by'], library_ms=lib_ms))
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=lib_ms))
     del cases
+    torch.cuda.empty_cache()
+    phase_done('kernels vs plain')
 
-    # ---- phase 3: the main path ----------------------------------------
+    # ---- phase 3: the serving path -------------------------------------
     wrappers = dict(rulebook_conv=ck.rulebook_conv,
                     row_gather=gk.row_gather,
                     cell_neighbor_join=jk.cell_neighbor_join,
-                    keyed_conv=ck.keyed_conv)
-    for w in wrappers.values():
-        w.launches = 0
+                    keyed_conv=ck.keyed_conv,
+                    rulebook_conv_dw=ck.rulebook_conv_dw,
+                    sorted_segment_sum=gk.sorted_segment_sum,
+                    sorted_key_rules_join=jk.sorted_key_rules_join)
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts():
+        return {k: w.launches for k, w in wrappers.items()}
+
+    reset_counts()
     per_scan = []
     for i in range(N_REQUESTS):
         seed = 100 + i
@@ -355,12 +563,14 @@ def main() -> int:
             f'{host_ms:.3f} test_forward_ms={dev_ms:.3f} '
             f'get_instances_ms={post_ms:.3f} n_proposals={n_prop} '
             f'instances={len(inst)} [{card}]')
-    launches = {k: w.launches for k, w in wrappers.items()}
-    log(f'[main-path] launches over {N_REQUESTS} requests: '
-        f'{json.dumps(launches)}')
-    missing = [k for k, v in launches.items() if v <= 0]
+    serve_counts = read_counts()
+    log(f'[main-path] serving: launches over {N_REQUESTS} requests: '
+        f'{json.dumps(serve_counts)}')
+    missing = [k for k in ('rulebook_conv', 'row_gather',
+                           'cell_neighbor_join', 'keyed_conv')
+               if serve_counts[k] <= 0]
     if missing:
-        raise RuntimeError(f'kernels never launched on the main path: '
+        raise RuntimeError(f'kernels never launched on the serving path: '
                            f'{missing}')
     dev_ms = sorted(s[1] for s in per_scan)
     host_ms = sorted(s[0] for s in per_scan)
@@ -368,36 +578,85 @@ def main() -> int:
     log(f'[main-path] test_forward ms/scan median={dev_ms[mid]:.3f} '
         f'min={dev_ms[0]:.3f} max={dev_ms[-1]:.3f}; host batch ms/scan '
         f'median={host_ms[mid]:.3f} [{card}]')
-
-    # ---- where the time goes: one more request under the profiler --------
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     batch, _ = make_request(100)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        entry.infer(net, batch, cfg, caps)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:   # kernels only, no ops
-            continue
-        us = getattr(ev, 'self_device_time_total', None)
-        if us is None:
-            us = getattr(ev, 'self_cuda_time_total', 0.0)
-        if us > 0:
-            rows.append((us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
-    busy_ms = sum(r[0] for r in rows)
-    log(f'[profile] one request: wall {wall_ms:.3f} ms, device busy '
-        f'{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f} '
-        f'(profiler on) [{card}]')
-    for ms_, count, key in rows[:12]:
-        log(f'[profile]   {ms_:9.3f} ms  x{count:<5d} {key[:90]}')
+    profile(lambda: entry.infer(net, batch, cfg, caps), 'one request', card)
+    del batch, out
+    phase_done('serving path')
 
-    # ---- phase 4: small input, card (f32) vs CPU (plain versions) -------
+    # ---- phase 4: the training path ------------------------------------
+    train_counts = {}
+    for mode in (FROZEN, ALL):
+        frozen = tuple(tcfg.fixed_modules) if mode == FROZEN else ()
+        state = train_state(frozen)
+        named = dict(state.net.named_parameters())
+        state.step(train_batches[0][0],
+                   generator=torch.Generator().manual_seed(0))
+        before = {k: p.detach().clone() for k, p in named.items()}
+        torch.cuda.synchronize()
+        reset_counts()
+        step_ms = []
+        for i in range(1, TRAIN_STEPS + 1):
+            batch, bhost_ms = train_batches[i]
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logs = state.step(batch,
+                              generator=torch.Generator().manual_seed(i))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            logs = {k: float(v) for k, v in logs.items()}
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            log(f'[train] {mode} step {i}: host_batch_ms={bhost_ms:.3f} '
+                f'step_ms={step_ms[-1]:.3f} '
+                + ' '.join(f'{k}={v:.6g}' for k, v in logs.items())
+                + f' peak_mem_gib={peak:.3f} [{card}]')
+            bad = [k for k, v in logs.items() if not np.isfinite(v)]
+            if bad:
+                raise RuntimeError(f'{mode}: non-finite {bad}')
+            if logs['num_pos'] + logs['num_neg'] <= 0:
+                raise RuntimeError(f'{mode} step {i}: no proposals')
+        counts = read_counts()
+        train_counts[mode] = counts
+        log(f'[main-path] training ({mode}): launches over {TRAIN_STEPS} '
+            f'steps: {json.dumps(counts)}')
+        need = ['rulebook_conv', 'row_gather', 'cell_neighbor_join',
+                'rulebook_conv_dw', 'sorted_segment_sum',
+                'sorted_key_rules_join']
+        missing = [k for k in need if counts[k] <= 0]
+        if missing:
+            raise RuntimeError(f'kernels never launched on the training '
+                               f'path ({mode}): {missing}')
+        for k, p in named.items():
+            top = k.split('.')[0]
+            if top in frozen:
+                if p.grad is not None or not torch.equal(p, before[k]):
+                    raise RuntimeError(f'{mode}: frozen {k} changed')
+                continue
+            if not torch.isfinite(p.grad).all():
+                raise RuntimeError(f'{mode}: non-finite gradient of {k}')
+        for m_ in ('tiny_unet', 'cls_linear') + (
+                ('input_conv', 'unet') if mode == ALL else ()):
+            if not any(bool(p.grad.abs().max() > 0) for k, p in named.items()
+                       if k.startswith(m_ + '.')):
+                raise RuntimeError(f'{mode}: {m_} has no gradient')
+        moved = sum(not torch.equal(p, before[k]) for k, p in named.items()
+                    if k.split('.')[0] not in frozen)
+        if moved == 0:
+            raise RuntimeError(f'{mode}: no parameter moved')
+        log(f'[main-path] training ({mode}): step ms median='
+            f'{statistics.median(step_ms):.3f} min={min(step_ms):.3f} '
+            f'max={max(step_ms):.3f}; {moved} trainable leaves moved, '
+            f'{len(frozen)} frozen modules unchanged [{card}]')
+        if mode == ALL:
+            profile(lambda: state.step(
+                train_batches[1][0], generator=torch.Generator().manual_seed(
+                    9)), 'one all-params train step', card)
+        del state, named, before
+        torch.cuda.empty_cache()
+    del train_batches
+    phase_done('training path')
+
+    # ---- phase 5: small inputs, card (f32) vs CPU (plain versions) ------
     small_caps = Capacities(
         points=32768, voxels=(32768, 16384, 8192, 4096, 2048, 1024, 512),
         grouping_points=65536, proposals=64, proposal_entries=65536,
@@ -406,9 +665,7 @@ def main() -> int:
                        n_instances=12)
     outs = {}
     for d in ('cpu', dev):
-        small_net = entry.build_net(cfg, seed=1, device=d, bf16=False)
-        with torch.no_grad():
-            small_net.semantic_linear.final_bias[2:4] = SEMANTIC_BIAS
+        small_net = lift(entry.build_net(cfg, seed=1, device=d, bf16=False))
         b = entry.build_batch(scene, cfg, small_caps, device=d)
         outs[d] = to_numpy(entry.infer(small_net, b, cfg, small_caps))
     a, r = outs[dev], outs['cpu']
@@ -416,6 +673,38 @@ def main() -> int:
     sem_err = float(np.abs(a['semantic_scores'][:n]
                            - r['semantic_scores'][:n]).max())
     off_err = float(np.abs(a['pt_offsets'][:n] - r['pt_offsets'][:n]).max())
+    miou, n_a, n_r = best_iou(a, r)
+    log(f'[small] card vs CPU on a 20k-point scene (f32): semantic max err '
+        f'{sem_err:.3g} (tol 1e-3), offset max err {off_err:.3g} (tol 1e-3), '
+        f'proposals {n_a} vs {n_r}, mean best IoU {miou:.6f} '
+        f'(tol 0.99: centroid sums may round differently)')
+    if sem_err > 1e-3 or off_err > 1e-3 or not n_r or miou < 0.99:
+        raise RuntimeError('card and CPU disagree on the small input')
+    small_train_check(entry, sg, blocks, small_caps, scene, lift, dev)
+    phase_done('small card vs CPU')
+
+    for r_ in results:
+        key = r_.pop('key')
+        by_path = {'serving': serve_counts[key],
+                   'train_frozen': train_counts[FROZEN][key],
+                   'train_all': train_counts[ALL][key]}
+        # the count of the path the kernel was ported for
+        r_['launches'] = by_path['train_all' if key in (
+            'rulebook_conv_dw', 'sorted_segment_sum',
+            'sorted_key_rules_join') else 'serving']
+        r_['launches_by_path'] = by_path
+    log(card)
+    print(json.dumps({'kernels': results}), flush=True)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': kind,
+        'count': torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def best_iou(a: dict, r: dict) -> tuple[float, int, int]:
+    """Mean over ``r``'s proposals (point sets) of the best IoU with one of
+    ``a``'s; (mean, len(a's), len(r's))."""
+    import numpy as np
 
     def sets(o):
         ev = o['entry_valid']
@@ -427,23 +716,283 @@ def main() -> int:
     pa, pr = sets(a), sets(r)
     best = [max((len(x & y) / len(x | y) for y in pa), default=0.0)
             for x in pr]
-    miou = float(np.mean(best)) if best else 0.0
-    log(f'[small] card vs CPU on a 20k-point scene (f32): semantic max err '
-        f'{sem_err:.3g} (tol 1e-3), offset max err {off_err:.3g} (tol 1e-3), '
-        f'proposals {len(pa)} vs {len(pr)}, mean best IoU {miou:.6f} '
-        f'(tol 0.99: centroid sums may round differently)')
-    if sem_err > 1e-3 or off_err > 1e-3 or not pr or miou < 0.99:
-        raise RuntimeError('card and CPU disagree on the small input')
+    return (float(np.mean(best)) if best else 0.0), len(pa), len(pr)
 
-    for r_ in results:
-        r_['launches'] = launches[r_.pop('key')]
-    log(card)
-    print(json.dumps({'kernels': results}), flush=True)
-    print(json.dumps({'ok': True, 'device': {
-        'platform': 'gpu', 'kind': kind,
-        'count': torch.cuda.device_count()}}), flush=True)
-    return 0
 
+class PlainVersions:
+    """Swaps every kernel wrapper, at its call sites, for its plain PyTorch
+    version (a control run on the card)."""
+
+    def __enter__(self):
+        from softgroup_tpu_torch.model import softgroup as sg
+        from softgroup_tpu_torch.ops import conv_kernel as ck
+        from softgroup_tpu_torch.ops import gather_kernel as gk
+        from softgroup_tpu_torch.ops import grouping, rulebook, sparse_conv
+        from softgroup_tpu_torch.ops import join_kernel as jk
+        swaps = [(sparse_conv, 'rulebook_conv', ck.rulebook_conv_plain),
+                 (sparse_conv, 'rulebook_conv_dw', ck.rulebook_conv_dw_plain),
+                 (gk, 'sorted_segment_sum', gk.sorted_segment_sum_plain),
+                 (gk, 'row_gather', gk.row_gather_plain),
+                 (grouping, 'row_gather', gk.row_gather_plain),
+                 (sg, 'row_gather', gk.row_gather_plain),
+                 (rulebook, 'sorted_key_rules_join',
+                  jk.sorted_key_rules_join_plain),
+                 (grouping, 'cell_neighbor_join',
+                  jk.cell_neighbor_join_plain)]
+        self.saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+        for m, n, f in swaps:
+            setattr(m, n, f)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, f in self.saved:
+            setattr(m, n, f)
+
+
+class SkewedK5:
+    """Scales K5's result by 1 + SKEW at its call site: a negative control
+    that the small train check must reject."""
+    SKEW = 1e-4
+
+    def __enter__(self):
+        from softgroup_tpu_torch.ops import sparse_conv
+        self.orig = orig = sparse_conv.rulebook_conv_dw
+
+        def skewed(*args, **kw):
+            return orig(*args, **kw) * (1 + self.SKEW)
+        sparse_conv.rulebook_conv_dw = skewed
+        return self
+
+    def __exit__(self, *exc):
+        from softgroup_tpu_torch.ops import sparse_conv
+        sparse_conv.rulebook_conv_dw = self.orig
+
+
+class AlignedReLU:
+    """Stands in for ``torch.relu`` during one train step.  In the
+    reference run it keeps every input.  In another run it puts each input
+    on the reference's side of 0 wherever the two straddle it (a
+    pre-activation within rounding of 0, whose ReLU decision f32 sums in
+    another order may flip), moving the value by at most the straddle and
+    leaving its gradient path intact, and counts those flips."""
+
+    def __init__(self, ref: list | None = None):
+        self.ref, self.seen, self.flips, self.worst = ref, [], 0, 0.0
+
+    def __enter__(self):
+        import torch
+        self.orig = torch.relu
+        torch.relu = self
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.relu = self.orig
+
+    def __call__(self, x):
+        if self.ref is None:
+            self.seen.append(x.detach().cpu())
+            return self.orig(x)
+        r = self.ref[len(self.seen)].to(x.device)
+        self.seen.append(None)
+        if r.shape != x.shape:
+            raise RuntimeError(f'ReLU {len(self.seen)}: shape {tuple(x.shape)}'
+                               f' vs the reference\'s {tuple(r.shape)}')
+        flip = (x > 0) != (r > 0)
+        if flip.any():
+            self.flips += int(flip.sum())
+            self.worst = max(self.worst, float(
+                x.detach().abs().maximum(r.abs())[flip].max()))
+            x = x + ((r - x) * flip).detach()
+        return self.orig(x)
+
+
+def small_train_check(entry, sg, blocks, small_caps, scene, lift,
+                      dev) -> None:
+    """One all-params f32 train step of the flagship training config on a
+    20k-point scene, from the same weights and the same (r1, r2), on the
+    CPU (plain versions) and on the card.  The offset head is zeroed, so
+    the grouping runs on the exact coordinates and every run forms the same
+    proposals.
+
+    A ReLU input within rounding of 0 may land on the other side of 0 when
+    f32 sums run in another order, and the flip moves the gradient by a
+    whole row's contribution (percents of a leaf's max).  Every run but the
+    CPU's therefore takes the CPU's side of 0 at each ReLU (AlignedReLU); a
+    flip whose input is more than KINK_BOUND from 0 fails the check.  Two
+    runs without the alignment (the card, and the CPU with its input one
+    ulp up) show what it removes.
+
+    Each gradient leaf is then held on its own: its card-vs-CPU gap may be
+    at most GRAD_CTRL_FACTOR times the larger of the same leaf's gaps in
+    three controls, plus 1e-5 of the leaf's max (f32 sums of a
+    well-conditioned leaf in another order).  The controls: the card with
+    every kernel swapped for its plain version (the card's own rounding),
+    and the CPU with the network's input one ulp up and one ulp down (how
+    far a change of the input within its rounding moves the leaf).  A run
+    with K5's result 1e-4 too large must fail that test."""
+    import contextlib
+    import dataclasses
+
+    import numpy as np
+    import torch
+    # halve the coordinates and move the instances 1 m apart: dense,
+    # separated blobs that the cell grouping (radius 0.04) turns into one
+    # proposal each even with random weights, so there are positives
+    xyz, rgb, sem, inst = scene
+    xyz = (xyz * 0.5 + np.where(inst[:, None] >= 0, inst[:, None], 0)
+           * np.array([1.0, 0.0, 0.0])).astype(np.float32)
+    scene = (xyz, rgb, sem, inst)
+    tcfg = entry.train_cfg()
+    rand = torch.tensor([[0.25, 0.5, 0.75], [0.6, 0.3, 0.9]])
+    up, down, again = 'one ulp up', 'one ulp down', 'card again'
+    plain, skewed = 'card, plain versions', 'card, K5 skewed'
+    raw_card, raw_up = 'card, not aligned', 'one ulp up, not aligned'
+    none = contextlib.nullcontext
+    # (run, device, context, input moved toward, ReLUs aligned)
+    runs = (('cpu', 'cpu', none, None, False), ('card', dev, none, None, True),
+            (again, dev, none, None, True),
+            (plain, dev, PlainVersions, None, True),
+            (up, 'cpu', none, float('inf'), True),
+            (down, 'cpu', none, float('-inf'), True),
+            (raw_card, dev, none, None, False),
+            (raw_up, 'cpu', none, float('inf'), False),
+            (skewed, dev, SkewedK5, None, True))
+    res, bn_rows, kinks = {}, {}, {}
+    for run, d, ctx, shift, aligned in runs:
+        net = lift(entry.build_net(tcfg, seed=1, device=d, bf16=False))
+        with torch.no_grad():
+            net.offset_linear.final_kernel.zero_()
+            net.offset_linear.final_bias.zero_()
+        state = entry.build_train_state(net, tcfg, small_caps)
+        batch = entry.build_train_batch([scene], tcfg, small_caps, device=d)
+        if shift is not None:
+            batch = dataclasses.replace(batch, vox_in=torch.nextafter(
+                batch.vox_in, torch.tensor(shift)))
+        # the rows each batch norm normalises over (its valid voxels)
+        hooks = [m.register_forward_hook(
+            lambda m, a, o, n=n: bn_rows.__setitem__(n, int(a[1].sum())))
+            for n, m in net.named_modules()
+            if isinstance(m, blocks.MaskedBatchNorm)]
+        relu = (AlignedReLU(res['cpu']['relu_in']) if aligned
+                else AlignedReLU() if run == 'cpu' else none())
+        props = []
+        orig = sg.forward_grouping
+
+        def grouping(*args, **kw):
+            props.append(orig(*args, **kw))
+            return props[-1]
+        sg.forward_grouping = grouping
+        try:
+            with ctx(), relu:
+                logs = state.step(batch, rand=rand)
+        finally:
+            sg.forward_grouping = orig
+            for h in hooks:
+                h.remove()
+        res[run] = dict(
+            logs={k: float(v) for k, v in logs.items()},
+            grads={k: p.grad.cpu().double()
+                   for k, p in net.named_parameters()},
+            params={k: p.detach().cpu().double()
+                    for k, p in net.named_parameters()},
+            props={k: v.cpu().numpy() for k, v in props[0]._asdict().items()},
+            relu_in=getattr(relu, 'seen', None))
+        if aligned:
+            kinks[run] = (relu.flips, relu.worst)
+    c, g = res['cpu'], res['card']
+    adam_eps = state.optimizer.defaults['eps']
+
+    def gap(run, k, ref=c):
+        return float((res[run]['grads'][k] - ref['grads'][k]).abs().max())
+
+    def rows_of(leaf):
+        # the batch norm of the leaf's own module, else of its nearest
+        # enclosing one
+        parts = leaf.split('.')[:-1]
+        while parts:
+            pre = '.'.join(parts)
+            near = [n for n in bn_rows if n == pre or n.startswith(pre + '.')]
+            if near:
+                return bn_rows[min(near, key=len)]
+            parts.pop()
+        return -1
+
+    def ratio(err, tol):
+        return err / tol if tol else (float('inf') if err else 0.0)
+
+    tols, leaves, param_err, det = {}, [], 0.0, 0.0
+    for k, gc in c['grads'].items():
+        s = float(gc.abs().max())
+        tols[k] = tol = (GRAD_CTRL_FACTOR * max(gap(r, k) for r in (
+            plain, up, down)) + 1e-5 * s)
+        leaves.append((ratio(gap('card', k), tol), k, s))
+        det = max(det, gap(again, k, g) / max(s, 1e-30))
+        # Adam's first step moves an entry by lr * g / (|g| + eps): where
+        # |g| > 10 tol and > 100 eps, the two runs' steps differ by at most
+        # lr * (eps / |g|) * (gap / |g|) <= 4e-6 (lr 0.004)
+        sure = (gc.abs() > 10 * tol) & (gc.abs() > 100 * adam_eps)
+        if sure.any():
+            dp = (g['params'][k] - c['params'][k]).abs()
+            param_err = max(param_err, float(dp[sure].max()))
+    leaves.sort(reverse=True)
+
+    def failing(run):
+        return sorted(((ratio(gap(run, k), tols[k]), k) for k in tols
+                       if gap(run, k) > tols[k]), reverse=True)
+
+    loss_err = max(abs(g['logs'][k] - v) / max(abs(v), 1e-12)
+                   for k, v in c['logs'].items())
+    miou, n_a, n_r = best_iou(g['props'], c['props'])
+    log(f'[small-train] one all-params f32 step on a 20k-point scene; ReLU '
+        f'inputs put on the CPU\'s side of 0 (flips, max |input| at a flip; '
+        f'bound {KINK_BOUND:g}): ' + ', '.join(
+            f'{r} {n} ({w:.3g})' for r, (n, w) in kinks.items()))
+    raw = failing(raw_card)
+    if raw:
+        r_, k = raw[0]
+        s = float(c['grads'][k].abs().max())
+        log(f'[small-train] without the alignment the card would fail '
+            f'{len(raw)} leaves; worst {k} (gap/tol {r_:.3g}): gap over the '
+            f'leaf max: card {gap(raw_card, k) / s:.4g}, CPU with the input '
+            f'one ulp up {gap(raw_up, k) / s:.4g}')
+    log(f'[small-train] {len(leaves)} gradient leaves, each held to its '
+        f'card-vs-CPU gap <= {GRAD_CTRL_FACTOR:g} x max(its gaps with the '
+        f'plain versions on the card and with the input one ulp up / down '
+        f'on the CPU) + 1e-5 x its max; card vs card again: max gap / leaf '
+        f'max {det:.3g}; the 8 leaves with the largest gap / tol (gaps to '
+        f'the CPU over the leaf max; rows = rows of its batch norm):')
+    for r_, k, s in leaves[:8]:
+        log(f'[small-train]   {k}: gap/tol {r_:.3g}, max {s:.4g}, card '
+            f'{gap("card", k) / s:.4g}, plain on card {gap(plain, k) / s:.4g}'
+            f', {up} {gap(up, k) / s:.4g}, {down} {gap(down, k) / s:.4g}, '
+            f'rows {rows_of(k)}')
+    caught = failing(skewed)
+    log(f'[small-train] negative control, K5\'s result x (1 + '
+        f'{SkewedK5.SKEW:g}): {len(caught)} leaves fail (must be > 0)')
+    log(f'[small-train] card vs CPU: max rel loss err {loss_err:.3g} (tol '
+        f'1e-4), max updated-param err {param_err:.3g} (tol 1e-5 where '
+        f'|CPU grad| > 10 x the leaf\'s tol and > 100 x Adam\'s eps), '
+        f'proposals {n_a} vs {n_r}, mean best IoU {miou:.6f} (tol 0.99), '
+        f'num_pos={c["logs"]["num_pos"]:.0f} '
+        f'mask_loss={c["logs"]["mask_loss"]:.6g}')
+    if max(w for _, w in kinks.values()) > KINK_BOUND:
+        raise RuntimeError('small train step: a ReLU input beyond '
+                           f'{KINK_BOUND:g} of 0 changed sides')
+    bad = failing('card')
+    if bad:
+        raise RuntimeError(f'small train step: gradients of '
+                           f'{[k for _, k in bad]} differ beyond their '
+                           f'tolerance')
+    if not caught:
+        raise RuntimeError('small train step: the check let a skewed K5 '
+                           'through')
+    if not (loss_err <= 1e-4 and param_err <= 1e-5 and n_r
+            and miou >= 0.99):
+        raise RuntimeError('card and CPU disagree on the small train step')
+    if c['logs']['num_pos'] <= 0 or c['logs']['mask_loss'] <= 0:
+        raise RuntimeError('small train step: no positive proposal / mask '
+                           'loss')
 
 if __name__ == '__main__':
     sys.exit(main())

@@ -327,7 +327,258 @@ int launch(const void* feats, const void* w, Taps taps, int n_taps,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K5: weight gradient of the rulebook conv (sg_conv_dw)
+//
+//   dW[k, i, j] = sum_v feats[rules[k, v], i] * g[v, j]      (-1 adds 0)
+//
+// Replaces softgroup_tpu/ops/conv_kernel.py:_dw_kernel (driven by
+// windowed_conv_dw, dispatched by sparse_conv._dw).  The TPU kernel carried
+// the (K, Cin, Cout) sum across its sequential grid in VMEM; Hopper's blocks
+// run in no order, so the V reduction is cut into ``split`` contiguous
+// ranges of 64-row chunks: block (tile, k, z) walks its range of
+// rules[k], skips every chunk whose 64 rules are all -1 (most taps of a
+// surface scan, the whole padded tail), gathers the hit feats rows and the
+// matching g rows into shared memory and accumulates its (BI x BJ) tile of
+// dW[k] in f32.  bf16: the 64 rows are the K dimension of wmma 16x16x16
+// (mma.sync) products A^T B; f32: CUDA-core FMA (no TF32).  Each z writes
+// an f32 partial slab that sum_partials adds in slab order, so the result
+// is deterministic (no atomics).
+//
+// Bound on the H100: bytes (one read of feats, g and the rules, one write of
+// dW); at 32 channels the FLOPs of the hit rows are far below the tensor
+// cores' rate.  What holds the kernel above it is the chunk loop's
+// latency: rules, then gathers, then the MMA, with block barriers between.
+constexpr int DW_BV = 64;  // rulebook rows per chunk
+
+template <int BI, int BJ>
+__global__ void __launch_bounds__(TC_NT)
+conv_dw_tc(const __nv_bfloat16* __restrict__ feats,
+           const __nv_bfloat16* __restrict__ g, const int* __restrict__ rules,
+           int n_taps, int v_out, int cin, int cout, int cpb, int n_chunks,
+           float* __restrict__ out) {
+  using namespace nvcuda;
+  constexpr int NFJ = BJ / 16;
+  constexpr int NFW = (BI / 16) * NFJ / 4;  // fragments per warp
+  __shared__ int rule_s[DW_BV];
+  __shared__ __align__(32) __nv_bfloat16 a_s[DW_BV][BI + TC_PAD];
+  __shared__ __align__(32) __nv_bfloat16 b_s[DW_BV][BJ + TC_PAD];
+  __shared__ __align__(32) float c_s[BI][BJ + 4];
+  const int tid = threadIdx.x, warp = tid / 32;
+  const int n_tj = (cout + BJ - 1) / BJ;
+  const int i0 = (blockIdx.x / n_tj) * BI, j0 = (blockIdx.x % n_tj) * BJ;
+  const int k = blockIdx.y;
+  const int* rk = rules + (size_t)k * v_out;
+  const bool vec_a = (cin % 8) == 0 && i0 + BI <= cin;
+  const bool vec_b = (cout % 8) == 0 && j0 + BJ <= cout;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NFW];
+#pragma unroll
+  for (int q = 0; q < NFW; ++q) wmma::fill_fragment(acc[q], 0.f);
+
+  const int ch_end = min(n_chunks, (int)(blockIdx.z + 1) * cpb);
+  for (int ch = blockIdx.z * cpb; ch < ch_end; ++ch) {
+    const int v0 = ch * DW_BV;
+    int hit = 0;
+    if (tid < DW_BV) {
+      const int r = v0 + tid < v_out ? rk[v0 + tid] : -1;
+      rule_s[tid] = r;
+      hit = r >= 0;
+    }
+    if (!__syncthreads_or(hit)) continue;  // block-uniform
+    if (vec_a) {
+      for (int t = tid; t < DW_BV * (BI / 8); t += TC_NT) {
+        const int r = t / (BI / 8), c = (t % (BI / 8)) * 8;
+        const int src = rule_s[r];
+        uint4 val = make_uint4(0, 0, 0, 0);
+        if (src >= 0)
+          val = *reinterpret_cast<const uint4*>(feats + (size_t)src * cin +
+                                                i0 + c);
+        *reinterpret_cast<uint4*>(&a_s[r][c]) = val;
+      }
+    } else {
+      for (int t = tid; t < DW_BV * BI; t += TC_NT) {
+        const int r = t / BI, c = t % BI;
+        const int src = rule_s[r];
+        a_s[r][c] = (src >= 0 && i0 + c < cin)
+                        ? feats[(size_t)src * cin + i0 + c] : zero;
+      }
+    }
+    if (vec_b) {
+      for (int t = tid; t < DW_BV * (BJ / 8); t += TC_NT) {
+        const int r = t / (BJ / 8), c = (t % (BJ / 8)) * 8;
+        uint4 val = make_uint4(0, 0, 0, 0);
+        if (rule_s[r] >= 0)
+          val = *reinterpret_cast<const uint4*>(g + (size_t)(v0 + r) * cout +
+                                                j0 + c);
+        *reinterpret_cast<uint4*>(&b_s[r][c]) = val;
+      }
+    } else {
+      for (int t = tid; t < DW_BV * BJ; t += TC_NT) {
+        const int r = t / BJ, c = t % BJ;
+        b_s[r][c] = (rule_s[r] >= 0 && j0 + c < cout)
+                        ? g[(size_t)(v0 + r) * cout + j0 + c] : zero;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < DW_BV; kk += 16) {
+#pragma unroll
+      for (int q = 0; q < NFW; ++q) {
+        const int f = warp * NFW + q, fi = f / NFJ, fj = f % NFJ;
+        // A^T: element (i, v) of the product's left operand is a_s[v][i]
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
+                       wmma::col_major> fa;
+        wmma::load_matrix_sync(fa, &a_s[kk][fi * 16], BI + TC_PAD);
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
+                       wmma::row_major> fb;
+        wmma::load_matrix_sync(fb, &b_s[kk][fj * 16], BJ + TC_PAD);
+        wmma::mma_sync(acc[q], fa, fb, acc[q]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int q = 0; q < NFW; ++q) {
+    const int f = warp * NFW + q, fi = f / NFJ, fj = f % NFJ;
+    wmma::store_matrix_sync(&c_s[fi * 16][fj * 16], acc[q], BJ + 4,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+  float* slab = out + ((size_t)blockIdx.z * n_taps + k) * cin * cout;
+  for (int t = tid; t < BI * BJ; t += TC_NT) {
+    const int i = t / BJ, j = t % BJ;
+    if (i0 + i < cin && j0 + j < cout)
+      slab[(size_t)(i0 + i) * cout + j0 + j] = c_s[i][j];
+  }
+}
+
+// f32 variant: CUDA-core FMA on a (BI/16) x (BJ/16) micro-tile per thread
+template <int BI, int BJ>
+__global__ void __launch_bounds__(NT)
+conv_dw_fma(const float* __restrict__ feats, const float* __restrict__ g,
+            const int* __restrict__ rules, int n_taps, int v_out, int cin,
+            int cout, int cpb, int n_chunks, float* __restrict__ out) {
+  constexpr int TI = BI / 16, TJ = BJ / 16;
+  __shared__ int rule_s[DW_BV];
+  __shared__ float a_s[DW_BV][BI + 1];
+  __shared__ float b_s[DW_BV][BJ];
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int n_tj = (cout + BJ - 1) / BJ;
+  const int i0 = (blockIdx.x / n_tj) * BI, j0 = (blockIdx.x % n_tj) * BJ;
+  const int k = blockIdx.y;
+  const int* rk = rules + (size_t)k * v_out;
+  float acc[TI][TJ];
+#pragma unroll
+  for (int i = 0; i < TI; ++i)
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
+
+  const int ch_end = min(n_chunks, (int)(blockIdx.z + 1) * cpb);
+  for (int ch = blockIdx.z * cpb; ch < ch_end; ++ch) {
+    const int v0 = ch * DW_BV;
+    int hit = 0;
+    if (tid < DW_BV) {
+      const int r = v0 + tid < v_out ? rk[v0 + tid] : -1;
+      rule_s[tid] = r;
+      hit = r >= 0;
+    }
+    if (!__syncthreads_or(hit)) continue;  // block-uniform
+    for (int t = tid; t < DW_BV * BI; t += NT) {
+      const int r = t / BI, c = t % BI;
+      const int src = rule_s[r];
+      a_s[r][c] = (src >= 0 && i0 + c < cin)
+                      ? feats[(size_t)src * cin + i0 + c] : 0.f;
+    }
+    for (int t = tid; t < DW_BV * BJ; t += NT) {
+      const int r = t / BJ, c = t % BJ;
+      b_s[r][c] = (rule_s[r] >= 0 && j0 + c < cout)
+                      ? g[(size_t)(v0 + r) * cout + j0 + c] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int v = 0; v < DW_BV; ++v) {
+      float a[TI], b[TJ];
+#pragma unroll
+      for (int i = 0; i < TI; ++i) a[i] = a_s[v][ty * TI + i];
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) b[j] = b_s[v][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < TI; ++i)
+#pragma unroll
+        for (int j = 0; j < TJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  float* slab = out + ((size_t)blockIdx.z * n_taps + k) * cin * cout;
+#pragma unroll
+  for (int i = 0; i < TI; ++i) {
+    const int ci = i0 + ty * TI + i;
+    if (ci >= cin) continue;
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) {
+      const int cj = j0 + tx + 16 * j;
+      if (cj < cout) slab[(size_t)ci * cout + cj] = acc[i][j];
+    }
+  }
+}
+
+template <int BI, int BJ>
+void launch_dw_tile(int dtype, const void* feats, const void* g,
+                    const int* rules, int n_taps, int v_out, int cin,
+                    int cout, int split, int cpb, int n_chunks, float* dst,
+                    cudaStream_t stream) {
+  const int tiles = ((cin + BI - 1) / BI) * ((cout + BJ - 1) / BJ);
+  const dim3 grid(tiles, n_taps, split);
+  if (dtype == 1)
+    conv_dw_tc<BI, BJ><<<grid, TC_NT, 0, stream>>>(
+        (const __nv_bfloat16*)feats, (const __nv_bfloat16*)g, rules, n_taps,
+        v_out, cin, cout, cpb, n_chunks, dst);
+  else
+    conv_dw_fma<BI, BJ><<<grid, NT, 0, stream>>>(
+        (const float*)feats, (const float*)g, rules, n_taps, v_out, cin,
+        cout, cpb, n_chunks, dst);
+}
+
 }  // namespace
+
+// feats (V_in, Cin), g (V_out, Cout) of one dtype (0 = f32, 1 = bf16),
+// rules (K, V_out) int32 -> out (K, Cin, Cout) f32.  split > 1 writes the
+// (split, K, Cin, Cout) slabs of ``partial`` first; each z walks chunks
+// [z * cpb, (z + 1) * cpb) of 64 rulebook rows.
+extern "C" int sg_conv_dw(const void* feats, const void* g, const void* rules,
+                          int n_taps, int v_out, int cin, int cout,
+                          int dtype, int split, int cpb, void* out,
+                          void* partial, void* stream) {
+  if (n_taps <= 0 || cin <= 0 || cout <= 0) return (int)cudaGetLastError();
+  const int n_chunks = (v_out + DW_BV - 1) / DW_BV;
+  if (split < 1 || cpb < 1 || (long long)split * cpb < n_chunks ||
+      (split > 1 && !partial) || split > 65535 || n_taps > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* dst = split > 1 ? (float*)partial : (float*)out;
+  const int* r = (const int*)rules;
+  if (cin <= 32 && cout <= 32)
+    launch_dw_tile<32, 32>(dtype, feats, g, r, n_taps, v_out, cin, cout,
+                           split, cpb, n_chunks, dst, s);
+  else if (cin <= 32)
+    launch_dw_tile<32, 64>(dtype, feats, g, r, n_taps, v_out, cin, cout,
+                           split, cpb, n_chunks, dst, s);
+  else if (cout <= 32)
+    launch_dw_tile<64, 32>(dtype, feats, g, r, n_taps, v_out, cin, cout,
+                           split, cpb, n_chunks, dst, s);
+  else
+    launch_dw_tile<64, 64>(dtype, feats, g, r, n_taps, v_out, cin, cout,
+                           split, cpb, n_chunks, dst, s);
+  if (split > 1) {
+    const long long n = (long long)n_taps * cin * cout;
+    long long blocks = (n + 255) / 256;
+    if (blocks > 132 * 8) blocks = 132 * 8;
+    sum_partials<float><<<(unsigned)blocks, 256, 0, s>>>(
+        (const float*)partial, split, n, (float*)out);
+  }
+  return (int)cudaGetLastError();
+}
 
 // dtype: 0 = float32, 1 = bfloat16 (feats, W and out share it)
 extern "C" int sg_rulebook_conv(const void* feats, const void* w,

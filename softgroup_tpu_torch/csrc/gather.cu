@@ -1,4 +1,6 @@
-// Row gather out[i, :] = src[clamp(idx[i], 0, n_src - 1), :] for Hopper.
+// Row gather (K2) and sorted segment sum (K6, below) for Hopper.
+//
+// K2: out[i, :] = src[clamp(idx[i], 0, n_src - 1), :].
 //
 // Replaces softgroup_tpu/ops/gather_kernel.py:_gather_kernel (driven by
 // monotone_row_gather / monotone_gather_f32): devoxelize, the grouping entry
@@ -15,6 +17,7 @@
 // so a row of 64 bytes is one 64-byte transaction.  Clamping matches the
 // reference's gather semantics and keeps every read in bounds.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -48,7 +51,150 @@ int launch(const void* src, const int* idx, int n_src, int n_out,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K6: sorted segment sum (sg_segment_sum)
+//
+//   out[s, :] = sum of values[i, :] over the rows i with seg[i] == s,
+//               seg non-decreasing; rows with seg outside [0, S) dropped
+//
+// Replaces softgroup_tpu/ops/gather_kernel.py:_segsum_kernel (driven by
+// monotone_segment_sum): the backward of a row gather (devoxelize, the
+// proposal-entry gather, the mask gather).  The TPU kernel DMAs a window of
+// rows per block of 256 segments and sums them with a one-hot matmul, with
+// an XLA fallback when a block's rows overflow the window and a bf16x3
+// split for f32.
+//
+// Here the rows are cut into chunks of SEG_R = 256; a block owns a chunk.
+// It finds the chunk's runs of equal seg (a ballot scan in shared memory)
+// and each thread sums (run, column) pairs in row order in f32, so
+// neighbouring threads read neighbouring columns.  A run inside the chunk
+// is a whole segment and goes straight to ``out``; a run that crosses the
+// chunk's first row is written to a first-partial slot, one that crosses
+// its last row to a last-partial slot.  A second kernel finishes each
+// segment that spans chunks, in the block of the chunk where it ends, by
+// adding its partials in chunk order.  Long runs (the dustbin row of the
+// padded entries, ~4e5 rows) are thus summed by all the chunks they cover
+// in parallel.  No window, no fallback, no atomics: the result is
+// deterministic; a segment inside one chunk is summed in index order,
+// exactly as a sequential CPU index_add_.  ``out`` must be zeroed first
+// (empty segments get no write).
+//
+// Bound on the H100: bytes (one read of values and seg, one write of out).
+constexpr int SEG_R = 256;   // rows per chunk, one chunk per block
+constexpr int SEG_NT = 256;  // threads per block
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(SEG_NT)
+segment_sum_chunks(const T* __restrict__ values, const int* __restrict__ seg,
+                   long long n, int n_seg, int c, float* __restrict__ out,
+                   float* __restrict__ first_part,
+                   float* __restrict__ last_part) {
+  __shared__ int run_start[SEG_R + 1];
+  __shared__ int warp_runs[SEG_NT / 32];
+  __shared__ int n_runs;
+  const long long r0 = (long long)blockIdx.x * SEG_R;
+  const int rows = (int)min((long long)SEG_R, n - r0);
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  // run starts: row 0 of the chunk, and every row whose seg differs from
+  // the row before it; compacted in row order with a ballot scan
+  const bool start = t < rows && (t == 0 || seg[r0 + t] != seg[r0 + t - 1]);
+  const unsigned mask = __ballot_sync(0xffffffffu, start);
+  if (lane == 0) warp_runs[warp] = __popc(mask);
+  __syncthreads();
+  if (t == 0) {
+    int acc = 0;
+    for (int w = 0; w < SEG_NT / 32; ++w) {
+      const int k = warp_runs[w];
+      warp_runs[w] = acc;
+      acc += k;
+    }
+    n_runs = acc;
+    run_start[acc] = rows;
+  }
+  __syncthreads();
+  if (start)
+    run_start[warp_runs[warp] + __popc(mask & ((1u << lane) - 1u))] = t;
+  __syncthreads();
+  const int nr = n_runs;
+  const bool crosses_in = r0 > 0 && seg[r0] == seg[r0 - 1];
+  const bool crosses_out = r0 + rows < n &&
+                           seg[r0 + rows] == seg[r0 + rows - 1];
+  for (int p = t; p < nr * c; p += SEG_NT) {
+    const int k = p / c, col = p - k * c;
+    const int a = run_start[k], b = run_start[k + 1];
+    const int s = seg[r0 + a];
+    if (s < 0 || s >= n_seg) continue;
+    float acc = 0.f;
+    for (int i = a; i < b; ++i) acc += to_f32(values[(r0 + i) * c + col]);
+    if (k == 0 && crosses_in)
+      first_part[(long long)blockIdx.x * c + col] = acc;
+    else if (k == nr - 1 && crosses_out)
+      last_part[(long long)blockIdx.x * c + col] = acc;
+    else
+      out[(long long)s * c + col] = acc;
+  }
+}
+
+// a segment that spans chunks c_lo..c_hi: P_last[c_lo] + P_first[c_lo + 1]
+// + ... + P_first[c_hi], added in the block of c_hi
+__global__ void __launch_bounds__(SEG_NT)
+segment_sum_spans(const int* __restrict__ seg, long long n, int n_seg, int c,
+                  const float* __restrict__ first_part,
+                  const float* __restrict__ last_part,
+                  float* __restrict__ out) {
+  const long long ch = blockIdx.x + 1;  // chunk 0 starts no span
+  const long long r0 = ch * SEG_R;
+  if (r0 >= n) return;
+  const int s = seg[r0];
+  if (s < 0 || s >= n_seg || seg[r0 - 1] != s) return;
+  const long long r_end = min(r0 + SEG_R, n);
+  if (r_end < n && seg[r_end] == s) return;  // continues: not its end
+  long long lo = 0, hi = r0;  // first row of the segment
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (seg[mid] < s) lo = mid + 1; else hi = mid;
+  }
+  const long long c_lo = lo / SEG_R;
+  for (int col = threadIdx.x; col < c; col += SEG_NT) {
+    float acc = last_part[c_lo * c + col];
+    for (long long k = c_lo + 1; k <= ch; ++k) acc += first_part[k * c + col];
+    out[(long long)s * c + col] = acc;
+  }
+}
+
 }  // namespace
+
+// values (n, c) of dtype (0 = f32, 1 = bf16), seg (n,) int32
+// non-decreasing -> out (n_seg, c) f32, zeroed by the caller; first_part
+// and last_part are f32 scratch of (ceil(n / 256), c) each
+extern "C" int sg_segment_sum(const void* values, const void* seg,
+                              long long n, int n_seg, int c, int dtype,
+                              void* out, void* first_part, void* last_part,
+                              void* stream) {
+  if (n <= 0 || n_seg <= 0 || c <= 0) return (int)cudaGetLastError();
+  const long long chunks = (n + SEG_R - 1) / SEG_R;
+  if (chunks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  float* fp = (float*)first_part;
+  float* lp = (float*)last_part;
+  if (dtype == 1)
+    segment_sum_chunks<__nv_bfloat16><<<(unsigned)chunks, SEG_NT, 0, s>>>(
+        (const __nv_bfloat16*)values, (const int*)seg, n, n_seg, c,
+        (float*)out, fp, lp);
+  else
+    segment_sum_chunks<float><<<(unsigned)chunks, SEG_NT, 0, s>>>(
+        (const float*)values, (const int*)seg, n, n_seg, c, (float*)out, fp,
+        lp);
+  if (chunks > 1)
+    segment_sum_spans<<<(unsigned)(chunks - 1), SEG_NT, 0, s>>>(
+        (const int*)seg, n, n_seg, c, fp, lp, (float*)out);
+  return (int)cudaGetLastError();
+}
 
 extern "C" int sg_row_gather(const void* src, const void* idx, int n_src,
                              int n_out, long long row_bytes, void* out,

@@ -1,12 +1,19 @@
 """Entry points of the port: the flagship ScanNet model (channels 32, 7 U-Net
-levels, 20 semantic / 18 instance classes), its config and the bench
-capacities, the host batch and ``test_forward``.  A request is
-``build_batch`` -> ``infer`` -> ``evaluation.postprocess.get_instances``
-(``chip_smoke.py`` drives exactly that).
+levels, 20 semantic / 18 instance classes).
 
-Counterpart of ``__graft_entry__._net_cfg`` / ``_build`` and the capacities
-of ``bench.py``.  Everything runs on ``device`` (default the card); pass
-``device="cpu"`` for the plain PyTorch versions of the kernels.
+* Serving: its config and the bench capacities, the host batch and
+  ``test_forward``.  A request is ``build_batch`` -> ``infer`` ->
+  ``evaluation.postprocess.get_instances``.  Counterpart of
+  ``__graft_entry__._net_cfg`` / ``_build`` and the capacities of
+  ``bench.py``.
+* Training: the model section of ``configs/softgroup/softgroup_scannet.yaml``
+  (``train_cfg``), the batch-4 capacities of ``tools/bench_train_batch4.py``
+  (``train_capacities``), a collated batch of scenes and the train state
+  (net, Adam, step).  Counterpart of ``tools/train.py``'s ``caps_from_cfg``
+  / ``build_net`` and ``tools/bench_train_batch4.py``.
+
+``chip_smoke.py`` drives both.  Everything runs on ``device`` (default the
+card); pass ``device="cpu"`` for the plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -16,7 +23,13 @@ import torch
 from .data.padding import build_scene_batch
 from .data.synthetic import collate_scenes
 from .model.softgroup import Capacities, SceneBatch, SoftGroupNet
+from .train import TrainState, make_train_step
 from .util.config import Config
+from .util.optim import freeze
+
+# the optimizer section of configs/softgroup/softgroup_scannet.yaml:
+# {type: Adam, lr: 0.004}; eps is optax.adam's
+TRAIN_LR, TRAIN_EPS = 0.004, 1e-8
 
 
 def flagship_cfg(channels: int = 32, num_blocks: int = 7) -> Config:
@@ -73,3 +86,65 @@ def infer(net: SoftGroupNet, batch: SceneBatch, cfg: Config,
           caps: Capacities) -> dict:
     """The ``test_forward`` outputs (tensors on the batch's device)."""
     return net.test_forward(batch, cfg, caps)
+
+
+def train_cfg() -> Config:
+    """The model section of ``configs/softgroup/softgroup_scannet.yaml``
+    (the second ScanNet stage: the backbone is frozen by
+    ``fixed_modules``)."""
+    return Config(dict(
+        channels=32, num_blocks=7, semantic_classes=20, instance_classes=18,
+        sem2ins_classes=[], semantic_only=False, ignore_label=-100,
+        with_coords=True,
+        grouping_cfg=dict(
+            pair_keys=False, score_thr=0.2, radius=0.04, mean_active=300,
+            class_numpoint_mean=[
+                -1.0, -1.0, 3917.0, 12056.0, 2303.0, 8331.0, 3948.0, 3166.0,
+                5629.0, 11719.0, 1003.0, 3317.0, 4912.0, 10221.0, 3889.0,
+                4136.0, 2120.0, 945.0, 3967.0, 2589.0],
+            npoint_thr=0.05, ignore_classes=[0, 1]),
+        instance_voxel_cfg=dict(scale=50, spatial_shape=20),
+        train_cfg=dict(max_proposal_num=200, pos_iou_thr=0.5),
+        test_cfg=dict(x4_split=False, cls_score_thr=0.001,
+                      mask_score_thr=-0.5, min_npoint=100,
+                      eval_tasks=['semantic', 'instance']),
+        fixed_modules=['input_conv', 'unet', 'output_norm',
+                       'semantic_linear', 'offset_linear'],
+    ))
+
+
+def train_capacities() -> Capacities:
+    """Static capacities of a batch of four ~250k-point rooms (1M points;
+    voxel caps sized for surface-sampled rooms, as
+    ``tools/bench_train_batch4.py``)."""
+    return Capacities(
+        points=1048576,
+        voxels=(851968, 425984, 131072, 65536, 16384, 8192, 4096),
+        grouping_points=2097152, proposals=200, proposal_entries=524288,
+        instances=384, inst_voxels=(131072, 32768), grouping_cells=131072)
+
+
+def build_train_batch(scenes, cfg: Config, caps: Capacities,
+                      scale: float = 50.0, device='cuda') -> SceneBatch:
+    """Scenes [(xyz, rgb, semantic, instance), ...] -> one collated,
+    padded SceneBatch (the batch index is the voxel coords' column 0)."""
+    data = collate_scenes(list(scenes), scale=scale)
+    return build_scene_batch(
+        data['coords'], data['coords_float'], data['feats'],
+        data['semantic_labels'], data['instance_labels'],
+        data['pt_offset_labels'], data['instance_pointnum'],
+        data['instance_cls'], data['spatial_shape'], caps,
+        num_levels=cfg.num_blocks, ignore_label=cfg.ignore_label,
+        with_coords=cfg.with_coords, device=device)
+
+
+def build_train_state(net: SoftGroupNet, cfg: Config, caps: Capacities,
+                      frozen_modules=()) -> TrainState:
+    """Adam over the trainable parameters of ``net`` (the yaml's
+    optimizer) and its train step;
+    ``frozen_modules`` (e.g. ``cfg.fixed_modules``) keep ``requires_grad``
+    False."""
+    opt = torch.optim.Adam(freeze(net, frozen_modules), lr=TRAIN_LR,
+                           eps=TRAIN_EPS)
+    return TrainState(net, opt, make_train_step(net, cfg, caps, opt,
+                                                frozen_modules))

@@ -5,8 +5,9 @@ Modules work on padded (V, C) feature matrices plus a ``LevelGeom``.
 Parameter and buffer names follow the reference's flax tree (``kernel``,
 ``scale``/``bias``/``mean``/``var``, ``hidden0_kernel``, ``block0``, ``u``,
 ...), so ``util/convert.py`` maps a flax tree onto a state dict by joining
-the path.  Inference only: ``MaskedBatchNorm`` normalizes with its running
-statistics.
+the path.  ``MaskedBatchNorm`` follows the module's mode: in train mode it
+normalizes with the statistics of the rows its ``mask`` marks valid and
+updates its running statistics; in eval mode it uses the running ones.
 """
 
 from __future__ import annotations
@@ -34,20 +35,41 @@ def _fan_in_uniform(shape, generator):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over rows with running statistics (eps=1e-4).  The result
-    is computed in f32 and returned in the input's dtype."""
+    """BatchNorm1d over the valid rows (torch semantics: eps=1e-4,
+    momentum=0.1; the biased batch variance normalizes, the unbiased one
+    updates the running variance, with the reference's max(n - 1, 1)
+    guard).  The result is computed in f32 and returned in the input's
+    dtype; statistics are f32."""
 
-    def __init__(self, features: int, eps: float = 1e-4):
+    def __init__(self, features: int, eps: float = 1e-4,
+                 momentum: float = 0.1):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer('mean', torch.zeros(features))
         self.register_buffer('var', torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = ((x.float() - self.mean) * torch.rsqrt(self.var + self.eps)
-             * self.scale + self.bias)
+    def forward(self, x: torch.Tensor,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            if mask is None:
+                raise ValueError('MaskedBatchNorm: train mode needs the '
+                                 'row mask')
+            m = mask.float()[:, None]
+            n = m.sum().clamp(min=1.0)
+            mean = (xf * m).sum(0) / n
+            var = ((xf - mean).square() * m).sum(0) / n
+            with torch.no_grad():
+                unbiased = var * n / (n - 1.0).clamp(min=1.0)
+                self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                self.var.mul_(1 - self.momentum).add_(
+                    self.momentum * unbiased)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
         return y.to(x.dtype)
 
 
@@ -99,8 +121,9 @@ class UpConv(nn.Module):
         super().__init__()
         self.kernel = _fan_in_uniform((8, cin, features), generator)
 
-    def forward(self, x, parent_idx, child_tap):
-        return inverse_conv(x, self.kernel, parent_idx, child_tap)
+    def forward(self, x, parent_idx, child_tap, down_rules=None):
+        return inverse_conv(x, self.kernel, parent_idx, child_tap,
+                            down_rules)
 
 
 class MLP(nn.Module):
@@ -124,12 +147,12 @@ class MLP(nn.Module):
             torch.randn((cin, out_features), generator=generator) * 0.01)
         self.final_bias = nn.Parameter(torch.zeros(out_features))
 
-    def forward(self, x):
+    def forward(self, x, mask=None):
         for i in range(self.num_layers - 1):
             x = linear(x, getattr(self, f'hidden{i}_kernel'),
                        getattr(self, f'hidden{i}_bias'))
             if self.norm:
-                x = getattr(self, f'norm{i}')(x)
+                x = getattr(self, f'norm{i}')(x, mask)
             x = torch.relu(x)
         return linear(x, self.final_kernel, self.final_bias)
 
@@ -152,8 +175,8 @@ class ResidualBlock(nn.Module):
     def forward(self, x, lv: LevelGeom):
         identity = x if self.i_branch_kernel is None \
             else linear(x, self.i_branch_kernel)
-        y = self.conv1(torch.relu(self.norm1(x)), lv)
-        y = self.conv2(torch.relu(self.norm2(y)), lv)
+        y = self.conv1(torch.relu(self.norm1(x, lv.vox_valid)), lv)
+        y = self.conv2(torch.relu(self.norm2(y, lv.vox_valid)), lv)
         return y + identity
 
 
@@ -189,10 +212,11 @@ class UBlock(nn.Module):
             x = getattr(self, f'block{i}')(x, lv)
         if self.deep:
             nxt = levels[1]
-            y = self.conv(torch.relu(self.conv_norm(x)), lv, nxt)
+            y = self.conv(torch.relu(self.conv_norm(x, lv.vox_valid)), lv,
+                          nxt)
             y = self.u(y, levels[1:])
-            y = torch.relu(self.deconv_norm(y))
-            y = self.deconv(y, lv.parent_idx, lv.child_tap)
+            y = torch.relu(self.deconv_norm(y, nxt.vox_valid))
+            y = self.deconv(y, lv.parent_idx, lv.child_tap, lv.down_rules)
             x = torch.cat([x, y], dim=1)
             for i in range(self.block_reps):
                 x = getattr(self, f'block_tail{i}')(x, lv)

@@ -1,7 +1,8 @@
-"""SoftGroup inference in PyTorch (counterpart of
-``softgroup_tpu/model/softgroup.py``: ``SoftGroupNet`` setup / ``backbone`` /
-``instance_head`` / ``test_forward``, ``forward_grouping``,
-``clusters_voxelization``, ``build_keyed_levels``).
+"""SoftGroup inference and training in PyTorch (counterpart of
+``softgroup_tpu/model/softgroup.py``: ``SoftGroupNet`` setup / ``backbone``
+/ ``instance_head`` / ``test_forward`` / ``loss_forward``,
+``forward_grouping``, ``clusters_voxelization``, ``build_keyed_levels``,
+``build_pyramid_from_voxels``, the losses).
 
 Shapes are static capacities with validity masks, as in the reference, so
 the outputs of ``test_forward`` carry the same keys and layouts: proposals
@@ -18,9 +19,11 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.gather_kernel import row_gather
+from ..ops.gather_kernel import gather_rows, row_gather
 from ..ops.geometry import LevelGeom, Pyramid
 from ..ops.grouping import cell_cluster_csr
+from ..ops.masks import mask_iou_on_cluster, mask_iou_on_pred, mask_label
+from ..ops.rulebook import build_downsample_linear, build_subm_rules_linear
 from ..ops.segment import (segment_max, segment_mean, segment_mean_fused,
                            segment_min)
 from ..ops.voxelize import compact_ascending, devoxelize, voxelize_linear
@@ -74,7 +77,9 @@ class SoftGroupNet(nn.Module):
     ``bf16``: backbone and refinement convs compute in bf16 with f32 sums
     (the reference's policy); heads return f32.  ``generator`` seeds the
     init (the reference's initializers; parameters are created on the CPU,
-    move the module with ``.to(device)``)."""
+    move the module with ``.to(device)``).  Each ``MaskedBatchNorm`` follows
+    its module's train/eval mode (``train.make_train_step`` keeps frozen
+    modules in eval mode, as the reference's ``_t`` does)."""
 
     def __init__(self, channels: int = 32, num_blocks: int = 7,
                  semantic_classes: int = 20, instance_classes: int = 18,
@@ -108,10 +113,11 @@ class SoftGroupNet(nn.Module):
         x = x.to(torch.bfloat16 if self.bf16 else torch.float32)
         x = self.input_conv(x, lv0)
         x = self.unet(x, pyramid.levels)
-        x = torch.relu(self.output_norm(x))
+        x = torch.relu(self.output_norm(x, lv0.vox_valid))
         output_feats = devoxelize(x, pyramid.p2v)
-        semantic_scores = self.semantic_linear(output_feats).float()
-        pt_offsets = self.offset_linear(output_feats).float()
+        pmask = pyramid.point_valid
+        semantic_scores = self.semantic_linear(output_feats, pmask).float()
+        pt_offsets = self.offset_linear(output_feats, pmask).float()
         return semantic_scores, pt_offsets, output_feats
 
     def instance_head(self, inst_vox_feats, inst_levels, entry_p2v,
@@ -121,9 +127,9 @@ class SoftGroupNet(nn.Module):
         x = inst_vox_feats.to(torch.bfloat16 if self.bf16
                               else torch.float32)
         x = self.tiny_unet(x, inst_levels)
-        x = torch.relu(self.tiny_output_norm(x))
-        mask_scores_vox = self.mask_linear(x)
-        mask_scores = row_gather(mask_scores_vox, entry_p2v)
+        x = torch.relu(self.tiny_output_norm(x, lv0.vox_valid))
+        mask_scores_vox = self.mask_linear(x, lv0.vox_valid)
+        mask_scores = gather_rows(mask_scores_vox, entry_p2v)
         # proposal-level pooled features; a voxel's proposal id is its
         # batch coordinate
         vox_seg = torch.where(lv0.vox_valid, lv0.vox_coords[:, 0],
@@ -156,6 +162,37 @@ class SoftGroupNet(nn.Module):
                 entry_pt=props.entry_pt, entry_seg=props.entry_seg,
                 entry_valid=props.entry_valid, n_proposals=props.n_proposals)
         return out
+
+    def loss_forward(self, batch: SceneBatch, cfg, caps: Capacities,
+                     generator: torch.Generator | None = None,
+                     rand: torch.Tensor | None = None):
+        """Training forward -> (total loss, log_vars).  ``rand``: the (2, 3)
+        uniform numbers of the proposal grids' random quantization (r1, r2;
+        drawn from ``generator`` when not given).  Grouping runs on detached
+        scores and offsets."""
+        sem, off, outf = self.backbone(batch.vox_in, batch.pyramid)
+        losses = point_wise_loss(sem, off, batch.semantic_labels,
+                                 batch.instance_labels,
+                                 batch.pt_offset_labels,
+                                 batch.pyramid.point_valid, cfg)
+        if not self.semantic_only:
+            if rand is None:
+                rand = torch.rand((2, 3), generator=generator)
+            props = forward_grouping(sem.detach(), off.detach(),
+                                     batch.batch_idxs, batch.coords_float,
+                                     batch.pyramid.point_valid, cfg, caps)
+            vox_feats, levels, entry_p2v = clusters_voxelization(
+                props, outf, batch.coords_float,
+                float(cfg.instance_voxel_cfg.scale),
+                int(cfg.instance_voxel_cfg.spatial_shape), caps,
+                rand=rand.to(device=sem.device, dtype=torch.float32))
+            cls_scores, iou_scores, mask_scores = self.instance_head(
+                vox_feats, levels, entry_p2v, caps.proposals)
+            losses.update(instance_loss(
+                cls_scores, mask_scores, iou_scores, props,
+                batch.instance_labels, batch.instance_pointnum,
+                batch.instance_cls, batch.instance_valid, cfg))
+        return parse_losses(losses)
 
 
 # ---------------------------------------------------------------------------
@@ -258,16 +295,24 @@ def forward_grouping(semantic_scores: torch.Tensor, pt_offsets: torch.Tensor,
 
 def clusters_voxelization(props: Proposals, feats: torch.Tensor,
                           coords_float: torch.Tensor, scale: float,
-                          spatial_shape: int, caps: Any):
+                          spatial_shape: int, caps: Any,
+                          rand: torch.Tensor | None = None):
     """Scale each proposal into a spatial_shape^3 grid and voxelize, with
-    the proposal id as the batch coordinate (inference: no random
-    quantization).  Returns (vox_feats, keyed levels, entry_p2v)."""
-    if spatial_shape % 2:
+    the proposal id as the batch coordinate.  Returns (vox_feats, levels,
+    entry_p2v).
+
+    Inference (``rand`` None): keyed levels for K4.  Training: ``rand`` is
+    (r1, r2), the (2, 3) uniform numbers of the random quantization, one
+    3-vector shared by all clusters; the levels carry explicit rulebooks
+    (K7), so the conv backwards reuse them."""
+    if spatial_shape % 2 and rand is None:
         raise NotImplementedError('keyed levels need an even spatial_shape')
     p_max = props.prop_valid.shape[0]
-    comb = row_gather(torch.cat([coords_float, feats.float()], dim=1),
-                      props.entry_pt)
-    coords, fe = comb[:, :3], comb[:, 3:]
+    comb = gather_rows(torch.cat([coords_float, feats.float()], dim=1),
+                       props.entry_pt)
+    # every path from the coordinates to the loss ends in a floor, so their
+    # gradient is exactly zero: detach them
+    coords, fe = comb[:, :3].detach(), comb[:, 3:]
     seg = torch.where(props.entry_valid, props.entry_seg, p_max)
 
     cmin = segment_min(coords, seg, p_max)
@@ -277,6 +322,12 @@ def clusters_voxelization(props: Proposals, feats: torch.Tensor,
     clusters_scale = clusters_scale.clamp(max=scale)
 
     cmin_s = cmin * clusters_scale[:, None]
+    if rand is not None:
+        rng_range = cmax * clusters_scale[:, None] - cmin_s
+        cmin_s = cmin_s - (spatial_shape - rng_range - 0.001).clamp(
+            min=0) * rand[0]
+        cmin_s = cmin_s - (spatial_shape - rng_range + 0.001).clamp(
+            max=0) * rand[1]
     par = torch.cat([clusters_scale[:, None], cmin_s], dim=1)
     pe = par[seg.long().clamp(0, p_max - 1)]
     grid = coords * pe[:, :1] - pe[:, 1:]
@@ -287,7 +338,11 @@ def clusters_voxelization(props: Proposals, feats: torch.Tensor,
     vx, ckey = voxelize_linear(c4, props.entry_valid, dims,
                                caps.inst_voxels[0])
     vox_feats = segment_mean_fused(fe, vx.p2v, caps.inst_voxels[0])
-    levels = build_keyed_levels(vx, ckey, spatial_shape, caps.inst_voxels)
+    if rand is None:
+        levels = build_keyed_levels(vx, ckey, spatial_shape,
+                                    caps.inst_voxels)
+    else:
+        levels = build_pyramid_from_voxels(vx, ckey, dims, caps.inst_voxels)
     return vox_feats, levels, vx.p2v
 
 
@@ -311,3 +366,148 @@ def build_keyed_levels(vx, ckey, spatial_shape: int,
                     torch.tensor([dc] * 3, device=dev), ckey=ckey2,
                     spatial_d=dc)
     return (lv0, lv1)
+
+
+def build_pyramid_from_voxels(vx, ckey, dims, capacities: Sequence[int]):
+    """Tiny-U-Net rulebook levels of the training step from a device
+    voxelization: per level the (27, V) subm rulebook (K7) and, but for the
+    last, the down rulebook and parent/tap maps to the next level."""
+    levels = []
+    coords, valid, key, dims = vx.vox_coords, vx.vox_valid, ckey, tuple(dims)
+    for lvl in range(len(capacities)):
+        dims_t = torch.tensor(dims, dtype=torch.int32, device=ckey.device)
+        subm = build_subm_rules_linear(key, coords, valid, dims_t)
+        if lvl + 1 == len(capacities):
+            levels.append(LevelGeom(coords, valid, subm, None, None, None,
+                                    dims_t))
+            break
+        (nxt_coords, nxt_valid, _, down, parent, tap, nxt_key,
+         nxt_dims) = build_downsample_linear(coords, valid, dims,
+                                             capacities[lvl + 1])
+        levels.append(LevelGeom(coords, valid, subm, down, parent, tap,
+                                dims_t))
+        coords, valid, key, dims = nxt_coords, nxt_valid, nxt_key, nxt_dims
+    return tuple(levels)
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+
+def point_wise_loss(semantic_scores, pt_offsets, semantic_labels,
+                    instance_labels, pt_offset_labels, point_valid, cfg):
+    """Semantic CE (+ class weights) with ignore_label, masked offset L1."""
+    ignore = cfg.ignore_label
+    n_cls = semantic_scores.shape[1]
+    sem_valid = point_valid & (semantic_labels != ignore)
+    tgt = semantic_labels.long().clamp(0, n_cls - 1)
+    logp = torch.log_softmax(semantic_scores.float(), dim=-1)
+    ce = -logp.gather(1, tgt[:, None])[:, 0]
+    weight = getattr_or(cfg, 'semantic_weight', None)
+    if weight is not None:
+        w = torch.tensor(weight, dtype=torch.float32, device=ce.device)[tgt]
+    else:
+        w = torch.ones_like(ce)
+    w = w * sem_valid.float()
+    semantic_loss = (ce * w).sum() / w.sum().clamp(min=1e-12)
+
+    pos = point_valid & (instance_labels != ignore)
+    d = pt_offsets.float() - pt_offset_labels.float()
+    # |d| with the reference's derivative at 0 (+1, jnp.abs's; torch.abs
+    # gives 0 there, and a zero offset head sits exactly on it)
+    diff = torch.where(d >= 0, d, -d)
+    npos = pos.sum()
+    offset_loss = torch.where(
+        npos > 0, (diff * pos[:, None]).sum() / npos.clamp(min=1).float(),
+        0.0)
+    return dict(semantic_loss=semantic_loss, offset_loss=offset_loss)
+
+
+def _take(scores, labels):
+    return torch.gather(scores.float(), 1, labels.long()[:, None])[:, 0]
+
+
+def instance_loss(cls_scores, mask_scores, iou_scores, props: Proposals,
+                  instance_labels, instance_pointnum, instance_cls,
+                  instance_valid, cfg):
+    """Refinement losses: proposal-gt assignment by IoU (with the optional
+    ``match_low_quality`` claims), CE cls loss, masked BCE mask loss, MSE
+    IoU-score loss; every reduction masked, so an empty batch gives zeros."""
+    k = cfg.instance_classes
+    p_max = props.prop_valid.shape[0]
+    n_inst = instance_pointnum.shape[0]
+    dev = cls_scores.device
+    pos_iou_thr = float(cfg.train_cfg.pos_iou_thr)
+    prop_valid = props.prop_valid
+
+    ious = mask_iou_on_cluster(props.entry_pt, props.entry_seg,
+                               props.entry_valid, instance_labels,
+                               instance_pointnum, p_max)   # (Pmax, I)
+    fg = instance_valid & (instance_cls != cfg.ignore_label)
+    neg = torch.full_like(ious, -1.0)
+    fg_ious = torch.where(fg[None, :], ious, neg)
+    max_iou, argmax_iou = fg_ious.max(dim=1).values, fg_ious.argmax(dim=1)
+    assigned = (max_iou >= pos_iou_thr) & prop_valid
+
+    if getattr_or(cfg.train_cfg, 'match_low_quality', False):
+        # each fg gt claims its best proposal; later gts win ties
+        min_pos_thr = float(getattr_or(cfg.train_cfg, 'min_pos_thr', 0.0))
+        col_ious = torch.where(prop_valid[:, None], ious, neg)
+        gt_max, gt_argmax = col_ious.max(dim=0).values, col_ious.argmax(0)
+        claim_ok = fg & (gt_max >= min_pos_thr)
+        gts = torch.arange(n_inst, dtype=torch.int32, device=dev)
+        claimer = torch.full((p_max + 1,), -1, dtype=torch.int32,
+                             device=dev).scatter_reduce(
+            0, torch.where(claim_ok, gt_argmax, p_max),
+            torch.where(claim_ok, gts, -1), reduce='amax')[:p_max]
+        assigned = assigned | (claimer >= 0)
+        argmax_iou = torch.where(claimer >= 0, claimer.clamp(min=0).long(),
+                                 argmax_iou)
+
+    gt_cls = instance_cls[argmax_iou.clamp(0, n_inst - 1)]
+    labels = torch.where(assigned, gt_cls.clamp(0, k - 1), k)
+
+    logp = torch.log_softmax(cls_scores.float(), dim=-1)
+    ce = -_take(logp, labels)
+    pv = prop_valid.float()
+    have = fg.any() & (props.n_proposals > 0)
+    cls_loss = torch.where(have, (ce * pv).sum() / pv.sum().clamp(min=1.0),
+                           0.0)
+
+    seg = props.entry_seg.long().clamp(0, p_max - 1)
+    ms_sig = torch.sigmoid(_take(mask_scores, labels[seg]))
+    mlabel = mask_label(props.entry_pt, props.entry_seg, props.entry_valid,
+                        instance_labels, instance_cls, ious, pos_iou_thr,
+                        cfg.ignore_label)
+    mw = ((mlabel != -1.0) & props.entry_valid).float()
+    tgt = mlabel.clamp(0.0, 1.0)
+    eps = 1e-12
+    bce = -(tgt * torch.log(ms_sig.clamp(min=eps))
+            + (1 - tgt) * torch.log((1 - ms_sig).clamp(min=eps)))
+    mask_loss = torch.where(have, (bce * mw).sum() / (mw.sum() + 1.0), 0.0)
+
+    ious_pred = mask_iou_on_pred(props.entry_pt, props.entry_seg,
+                                 props.entry_valid, instance_labels,
+                                 instance_pointnum, ms_sig.detach(), p_max)
+    fg_pred = torch.where(fg[None, :], ious_pred, torch.full_like(ious_pred,
+                                                                   -1.0))
+    gt_ious = fg_pred.max(dim=1).values.clamp(min=0.0)
+    iw = ((labels < k) & prop_valid).float()
+    iou_score_loss = torch.where(
+        have, ((_take(iou_scores, labels) - gt_ious).square() * iw).sum()
+        / (iw.sum() + 1.0), 0.0)
+
+    num_pos = ((labels < k) & prop_valid).sum().float()
+    num_neg = ((labels >= k) & prop_valid).sum().float()
+    return dict(cls_loss=cls_loss, mask_loss=mask_loss,
+                iou_score_loss=iou_score_loss, num_pos=num_pos,
+                num_neg=num_neg)
+
+
+def parse_losses(losses: dict):
+    """Total = the sum of the entries whose key contains 'loss'; log_vars
+    adds it under 'loss'."""
+    total = sum(v for key, v in losses.items() if 'loss' in key)
+    log_vars = dict(losses)
+    log_vars['loss'] = total
+    return total, log_vars

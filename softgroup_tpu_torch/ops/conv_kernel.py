@@ -1,4 +1,4 @@
-"""K1 and K4: sparse 3-D convolution as a gather-GEMM on Hopper.
+"""K1, K4 and K5: sparse 3-D convolution as a gather-GEMM on Hopper.
 
 * K1 ``rulebook_conv`` — ``out[v] = sum_k feats[rules[k, v]] @ W[k]`` over
   an explicit (K, V_out) rulebook (-1 adds zero).  Replaces
@@ -9,6 +9,10 @@
   (bounds-tested like ``conv_kernel.py:848-871``).  Replaces
   ``conv_kernel.py:_keyed_kernel`` (driven by ``keyed_windowed_conv``):
   the tiny refinement U-Net.
+* K5 ``rulebook_conv_dw`` — the weight gradient
+  ``dW[k] = sum_v feats[rules[k, v]]^T g[v]`` (f32) of every rulebook conv
+  of the training step.  Replaces ``conv_kernel.py:_dw_kernel`` (driven by
+  ``windowed_conv_dw``, dispatched by ``sparse_conv._dw``).
 
 Kernel source and design note: ``csrc/conv.cu``.  The TPU's windows,
 overflow corrections, bf16x3 split and transposed accumulator have no
@@ -39,6 +43,12 @@ _ROWS_PER_BLOCK = 64
 # a grid with fewer blocks than this (2 per SM of an H100) spreads its taps
 # over several blocks per tile (f32 partial slabs, summed by a second kernel)
 _FILL_BLOCKS = 264
+# K5 cuts each tap's V reduction into contiguous ranges of 64-row chunks
+# until a launch has about this many blocks (~15 resident per SM of an
+# H100 at 32 channels): each range is a serial loop, so more blocks mean
+# shorter loops
+_DW_ROWS = 64
+_DW_FILL_BLOCKS = 2048
 
 
 def _split_taps(v_out: int, cout: int, n_taps: int, like: torch.Tensor):
@@ -181,3 +191,70 @@ def keyed_conv(feats: torch.Tensor, weight: torch.Tensor,
 
 
 keyed_conv.launches = 0
+
+
+def rulebook_conv_dw_plain(feats: torch.Tensor, g: torch.Tensor,
+                           rules: torch.Tensor) -> torch.Tensor:
+    """Plain version of K5 (the per-tap gather and product of the
+    reference's ``xla_dw``): ``g`` cast to feats' dtype, f32 products and
+    sums, (K, Cin, Cout) f32."""
+    v = feats.shape[0]
+    g = g.to(feats.dtype).float()
+    padded = torch.cat([feats.float(),
+                        feats.new_zeros((1, feats.shape[1]),
+                                        dtype=torch.float32)])
+    return torch.stack([
+        padded[torch.where(rules[k] < 0, v, rules[k]).long()].T @ g
+        for k in range(rules.shape[0])])
+
+
+def rulebook_conv_dw(feats: torch.Tensor, g: torch.Tensor,
+                     rules: torch.Tensor) -> torch.Tensor:
+    """K5: feats (V_in, Cin), g (V_out, Cout), rules (K, V_out) int ->
+    (K, Cin, Cout) f32, ``g`` cast to feats' dtype first."""
+    if feats.device.type == 'cpu':
+        return rulebook_conv_dw_plain(feats, g, rules)
+    if feats.dtype not in _DTYPES:
+        raise ValueError(f'rulebook_conv_dw: feats must be float32 or '
+                         f'bfloat16, got {feats.dtype}')
+    feats = _aligned(feats.contiguous())
+    g = _aligned(g.to(feats.dtype).contiguous())
+    rules = rules.to(torch.int32).contiguous()
+    kernels.require_cuda('rulebook_conv_dw', feats, g, rules)
+    k, v_out = rules.shape
+    if g.shape[0] != v_out:
+        raise ValueError('rulebook_conv_dw: one g row per rulebook column')
+    cin, cout = feats.shape[1], g.shape[1]
+    out = torch.empty((k, cin, cout), dtype=torch.float32,
+                      device=feats.device)
+    split, cpb = _dw_split(k, v_out, cin, cout)
+    partial = torch.empty((split, k, cin, cout) if split > 1 else (0,),
+                          dtype=torch.float32, device=feats.device)
+    rc = kernels.lib('conv').sg_conv_dw(
+        feats.data_ptr(), g.data_ptr(), rules.data_ptr(), k, v_out, cin,
+        cout, _DTYPES[feats.dtype], split, cpb, out.data_ptr(),
+        partial.data_ptr(), kernels.stream())
+    kernels.check(rc, 'rulebook_conv_dw')
+    rulebook_conv_dw.launches += 1
+    return out
+
+
+rulebook_conv_dw.launches = 0
+
+
+def _dw_split(k: int, v_out: int, cin: int, cout: int) -> tuple[int, int]:
+    """(split, 64-row chunks per block) of a K5 launch: the grid is
+    (Cin x Cout tiles, K taps, split)."""
+    ti = 32 if cin <= 32 else 64
+    tj = 32 if cout <= 32 else 64
+    base = k * -(-cin // ti) * -(-cout // tj)
+    n_chunks = max(1, -(-v_out // _DW_ROWS))
+    split = min(n_chunks, 65535, max(1, -(-_DW_FILL_BLOCKS // base)))
+    cpb = -(-n_chunks // split)
+    return -(-n_chunks // cpb), cpb
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, copied when its data is not 16-byte aligned (the kernels load
+    16-byte vectors)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()

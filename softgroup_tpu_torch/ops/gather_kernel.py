@@ -1,4 +1,5 @@
-"""K2: row gather ``out[i] = src[clamp(idx[i], 0, len(src) - 1)]``.
+"""K2 row gather ``out[i] = src[clamp(idx[i], 0, len(src) - 1)]``, K6
+sorted segment sum, and the differentiable gather built on both.
 
 Replaces ``softgroup_tpu/ops/gather_kernel.py:_gather_kernel`` (driven by
 ``monotone_row_gather`` / ``monotone_gather_f32``).  On the main path it
@@ -8,8 +9,14 @@ gather and the cell-label gather, plus the proposal-entry gather of
 ``csrc/gather.cu``.  The copy moves raw bytes, so it is exact for every
 dtype and needs no monotone indices.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
-it takes the plain version below.
+K6 ``sorted_segment_sum`` replaces ``gather_kernel.py:_segsum_kernel``
+(driven by ``monotone_segment_sum``): the backward of ``gather_rows``, the
+gather of the training step (devoxelize, the proposal-entry gather, the
+mask gather), as the reference's ``_devox_vjp`` / ``gather_rows_segsum_vjp``
+backwards are.  Design note: ``csrc/gather.cu``.
+
+On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
+tensor it takes the plain version below.
 """
 
 from __future__ import annotations
@@ -17,6 +24,8 @@ from __future__ import annotations
 import torch
 
 from . import kernels
+
+_SEG_ROWS = 256   # csrc/gather.cu SEG_R: K6's rows per chunk
 
 
 def row_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -45,3 +54,83 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 row_gather.launches = 0
+
+
+def sorted_segment_sum_plain(values: torch.Tensor, seg: torch.Tensor,
+                             num_segments: int) -> torch.Tensor:
+    """Plain version of K6: ``index_add_`` in f32 over the in-range rows
+    (sequential in row order on the CPU)."""
+    ok = (seg >= 0) & (seg < num_segments)
+    out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
+                      dtype=torch.float32, device=values.device)
+    return out.index_add_(0, seg[ok].long(), values[ok].float())
+
+
+def sorted_segment_sum(values: torch.Tensor, seg: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """K6: values (N, C) bf16 or f32, seg (N,) NON-DECREASING ->
+    (num_segments, C) f32; rows with seg outside [0, num_segments) drop."""
+    if values.device.type == 'cpu':
+        return sorted_segment_sum_plain(values, seg, num_segments)
+    if values.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f'sorted_segment_sum: values must be float32 or '
+                         f'bfloat16, got {values.dtype}')
+    if values.dim() != 2 or seg.shape != values.shape[:1]:
+        raise ValueError('sorted_segment_sum: values (N, C), seg (N,)')
+    values = values.contiguous()
+    seg = seg.to(torch.int32).contiguous()
+    kernels.require_cuda('sorted_segment_sum', values, seg)
+    n, c = values.shape
+    out = torch.zeros((num_segments, c), dtype=torch.float32,
+                      device=values.device)
+    # per 256-row chunk: the partial sums of a segment crossing its first
+    # and its last row
+    parts = torch.empty((2, -(-n // _SEG_ROWS), c), dtype=torch.float32,
+                        device=values.device)
+    rc = kernels.lib('gather').sg_segment_sum(
+        values.data_ptr(), seg.data_ptr(), n, num_segments, c,
+        int(values.dtype == torch.bfloat16), out.data_ptr(),
+        parts[0].data_ptr(), parts[1].data_ptr(), kernels.stream())
+    kernels.check(rc, 'sorted_segment_sum')
+    sorted_segment_sum.launches += 1
+    return out
+
+
+sorted_segment_sum.launches = 0
+
+
+class _GatherRows(torch.autograd.Function):
+    """``src[clamp(idx)]`` on K2; backward: the segment sum of the output
+    cotangent over the clamped index on K6, after a stable sort of the
+    index and a K2 gather of the cotangent rows unless the caller
+    guarantees a non-decreasing index."""
+
+    @staticmethod
+    def forward(ctx, src, idx, sorted_idx):
+        ctx.n_src, ctx.tail, ctx.dtype = src.shape[0], src.shape[1:], \
+            src.dtype
+        ctx.sorted_idx = sorted_idx
+        ctx.save_for_backward(idx)
+        return row_gather(src, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        seg = idx.to(torch.int32).clamp(0, ctx.n_src - 1)
+        if not ctx.sorted_idx:
+            seg, order = torch.sort(seg, stable=True)
+            g = row_gather(g, order)
+        g = g.reshape(g.shape[0], -1)
+        gv = sorted_segment_sum(g, seg, ctx.n_src)
+        return gv.reshape((ctx.n_src,) + ctx.tail).to(ctx.dtype), None, None
+
+
+def gather_rows(src: torch.Tensor, idx: torch.Tensor,
+                sorted_idx: bool = False) -> torch.Tensor:
+    """Differentiable ``src[clamp(idx, 0, len(src) - 1)]`` (float ``src``
+    of any trailing shape).  ``sorted_idx``: the caller guarantees that the
+    clamped ``idx`` is non-decreasing, so the backward skips the sort.  The
+    gradient is summed in f32 and returned in ``src``'s dtype."""
+    if not (torch.is_grad_enabled() and src.requires_grad):
+        return row_gather(src, idx)
+    return _GatherRows.apply(src, idx, sorted_idx)

@@ -1,4 +1,5 @@
-"""K3: the neighbour-cell join of soft grouping.
+"""K3, the neighbour-cell join of soft grouping, and K7, the rulebook join
+of the training proposal grids.
 
 Replaces ``softgroup_tpu/ops/join_kernel.py:_join_kernel`` (driven by
 ``cell_neighbor_join``), called from ``grouping._cell_core`` on
@@ -8,6 +9,11 @@ Replaces ``softgroup_tpu/ops/join_kernel.py:_join_kernel`` (driven by
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it takes the plain version below, which follows the reference's XLA path
 (searchsorted join, then the centroid gate, ``ops/grouping.py:275-288``).
+
+K7 ``sorted_key_rules_join`` replaces ``join_kernel.py:_rules_kernel``
+(driven by ``sorted_key_rules_join``), called from
+``rulebook.build_subm_rules_linear`` for every tiny-U-Net level of the
+training step; its plain version is the reference's ``xla_rules_join``.
 """
 
 from __future__ import annotations
@@ -26,6 +32,11 @@ def radius_sq(radius: float) -> float:
     return float(r * r)
 
 
+def _d_lin(offs_t: torch.Tensor, dims: torch.Tensor) -> torch.Tensor:
+    """Linear key offset of each (dx, dy, dz) offset on a ``dims`` grid."""
+    return (offs_t[:, 0] * dims[1] + offs_t[:, 1]) * dims[2] + offs_t[:, 2]
+
+
 def cell_neighbor_join_plain(table_keys, centroid, ccoord, dims, offs,
                              radius) -> torch.Tensor:
     """(R, m) int32: see ``cell_neighbor_join``."""
@@ -33,12 +44,11 @@ def cell_neighbor_join_plain(table_keys, centroid, ccoord, dims, offs,
     dev = table_keys.device
     offs_t = torch.as_tensor(np.asarray(offs, np.int32), device=dev)
     dims = dims.to(torch.int32)
-    d_lin = (offs_t[:, 0] * dims[1] + offs_t[:, 1]) * dims[2] + offs_t[:, 2]
     ct = ccoord.T[None]                                  # (1, 3, m)
     ok = ((table_keys != INT_MAX)[None, :]
           & (offs_t[:, :, None] + ct >= 0).all(dim=1)
           & (offs_t[:, :, None] <= dims[None, :, None] - 1 - ct).all(dim=1))
-    q = torch.where(ok, table_keys[None, :] + d_lin[:, None],
+    q = torch.where(ok, table_keys[None, :] + _d_lin(offs_t, dims)[:, None],
                     torch.full_like(table_keys, INT_MAX)[None, :])
     pos = torch.searchsorted(table_keys, q.reshape(-1)).reshape(q.shape)
     pc = pos.clamp(0, m - 1)
@@ -87,3 +97,52 @@ def cell_neighbor_join(table_keys: torch.Tensor, centroid: torch.Tensor,
 
 
 cell_neighbor_join.launches = 0
+
+
+def sorted_key_rules_join_plain(table_keys, xyz, dims, offs) -> torch.Tensor:
+    """(R, m) int32: see ``sorted_key_rules_join`` (the reference's
+    ``xla_rules_join`` with ``torch.searchsorted``)."""
+    m = table_keys.shape[0]
+    offs_t = torch.as_tensor(np.asarray(offs, np.int32),
+                             device=table_keys.device)
+    dims = dims.to(torch.int32)
+    xt = xyz.T[None]                                      # (1, 3, m)
+    ok = ((table_keys != INT_MAX)[None, :]
+          & (offs_t[:, :, None] + xt >= 0).all(dim=1)
+          & (offs_t[:, :, None] <= dims[None, :, None] - 1 - xt).all(dim=1))
+    q = torch.where(ok, table_keys[None, :] + _d_lin(offs_t, dims)[:, None],
+                    torch.full_like(table_keys, INT_MAX)[None, :])
+    pos = torch.searchsorted(table_keys, q.reshape(-1)).reshape(q.shape)
+    pc = pos.clamp(0, m - 1)
+    hit = ok & (pos < m) & (table_keys[pc] == q)
+    return torch.where(hit, pc, -1).to(torch.int32)
+
+
+def sorted_key_rules_join(table_keys: torch.Tensor, xyz: torch.Tensor,
+                          dims: torch.Tensor, offs) -> torch.Tensor:
+    """K7: rules[r, i] = j with table_keys[j] == table_keys[i] + dlin(r)
+    and the bounds test ``0 <= xyz[i] + offs[r] < dims`` passed, else -1.
+
+    table_keys: (m,) int32 sorted linear keys ((b*d0 + x)*d1 + y)*d2 + z,
+    INT_MAX padded; xyz (m, 3) int32 voxel coords; dims (3,) int32 tensor
+    (stays on the device); offs (R, 3) integer offsets.  Returns (R, m)
+    int32, exact."""
+    if table_keys.device.type == 'cpu':
+        return sorted_key_rules_join_plain(table_keys, xyz, dims, offs)
+    dev = table_keys.device
+    keys = table_keys.to(torch.int32).contiguous()
+    xyz = xyz.to(torch.int32).contiguous()
+    dm = dims.to(torch.int32).contiguous()
+    offs_t = torch.as_tensor(np.asarray(offs, np.int32), device=dev)
+    kernels.require_cuda('sorted_key_rules_join', keys, xyz, dm, offs_t)
+    m, n_off = keys.shape[0], offs_t.shape[0]
+    out = torch.empty((n_off, m), dtype=torch.int32, device=dev)
+    rc = kernels.lib('join').sg_rules_join(
+        keys.data_ptr(), xyz.data_ptr(), dm.data_ptr(), offs_t.data_ptr(),
+        n_off, m, out.data_ptr(), kernels.stream())
+    kernels.check(rc, 'sorted_key_rules_join')
+    sorted_key_rules_join.launches += 1
+    return out
+
+
+sorted_key_rules_join.launches = 0

@@ -12,7 +12,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .gather_kernel import row_gather
+from .gather_kernel import gather_rows
 
 INT_MAX = 2 ** 31 - 1
 
@@ -70,8 +70,16 @@ def voxelize_linear(coords: torch.Tensor, valid: torch.Tensor, dims,
 def devoxelize(vox_feats: torch.Tensor, p2v: torch.Tensor) -> torch.Tensor:
     """Voxel features back to points, ``vox_feats[clamp(p2v)]`` (K2);
     out-of-range p2v (pad points) read the last row and are masked by the
-    callers."""
-    return row_gather(vox_feats, p2v)
+    callers.
+
+    ``build_scene_batch`` sorts points by voxel and pads p2v with the
+    capacity, so the clamped p2v is non-decreasing and the backward (the
+    gather's transpose) goes straight to the sorted segment sum (K6); this
+    is asserted on the device."""
+    if torch.is_grad_enabled() and vox_feats.requires_grad:
+        torch._assert_async((p2v[1:] >= p2v[:-1]).all(),
+                            'devoxelize: p2v must be non-decreasing')
+    return gather_rows(vox_feats, p2v, sorted_idx=True)
 
 
 def voxelize_np(coords: np.ndarray

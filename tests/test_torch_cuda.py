@@ -90,3 +90,81 @@ def test_keyed_conv(dev, strided):
                                strided).double()
     assert float((got - want).abs().max()) <= \
         2.0 ** -7 * max(1.0, float(want.abs().max()))
+
+
+def _conv_dw_case(dev, dtype, k, cin, cout, v_in, v_out, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = torch.randn(v_in, cin, device=dev, generator=g).to(dtype)
+    go = torch.randn(v_out, cout, device=dev, generator=g).to(dtype)
+    r = torch.randint(-v_in, v_in, (k, v_out), device=dev, generator=g).int()
+    r[:, v_out // 2:v_out // 2 + 640] = -1    # whole chunks to skip
+    return f, go, r
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('k,cin,cout,v_out', [
+    (27, 32, 32, 20000), (8, 32, 64, 9000), (27, 384, 192, 3000),
+    (27, 6, 32, 5000)], ids=['subm', 'down', 'wide', 'input'])
+def test_conv_dw(dev, dtype, k, cin, cout, v_out):
+    """K5 against its plain version: f32 sums in another order, relative
+    to max|plain| (the inputs are exact in both: bf16 products are exact
+    in f32)."""
+    f, go, r = _conv_dw_case(dev, dtype, k, cin, cout, 4000, v_out,
+                             k + cin + cout)
+    got = ck.rulebook_conv_dw(f, go, r).double()
+    want = ck.rulebook_conv_dw_plain(f, go, r).double()
+    assert got.shape == (k, cin, cout)
+    assert float((got - want).abs().max()) <= \
+        1e-4 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('c', [32, 35, 19])
+def test_sorted_segment_sum(dev, dtype, c):
+    """K6 against its plain version, with out-of-range rows at both ends
+    and a long run on one segment."""
+    n, s = 60000, 20000
+    seg = torch.randint(-50, s + 50, (n,), device=dev)
+    seg[1000:9000] = 777
+    seg = torch.sort(seg).values.int()
+    vals = torch.randn(n, c, device=dev).to(dtype)
+    got = gk.sorted_segment_sum(vals, seg, s).double()
+    want = gk.sorted_segment_sum_plain(vals, seg, s).double()
+    assert got.shape == (s, c)
+    assert float((got - want).abs().max()) <= \
+        1e-5 * max(1.0, float(want.abs().max()))
+
+
+def test_gather_rows_backward(dev):
+    """The differentiable gather on K2 + K6 (sorted and unsorted index)
+    against autograd of plain indexing."""
+    src = torch.randn(3000, 35, device=dev, requires_grad=True)
+    for idx, srt in ((torch.randint(0, 3000, (20000,), device=dev), False),
+                     (torch.sort(torch.randint(0, 3200, (20000,),
+                                               device=dev)).values, True)):
+        g = torch.randn(20000, 35, device=dev)
+        src.grad = None
+        gk.gather_rows(src, idx, sorted_idx=srt).backward(g)
+        want = torch.zeros_like(src).index_add_(0, idx.clamp(max=2999), g)
+        assert float((src.grad - want).abs().max()) <= 1e-4
+
+
+def test_rules_join_exact(dev):
+    rng = np.random.RandomState(1)
+    d, m = 20, 8192
+    c = np.concatenate([rng.randint(0, 40, (20000, 1)),
+                        rng.randint(0, d, (20000, 3))], 1)
+    key = np.unique(((c[:, 0] * d + c[:, 1]) * d + c[:, 2]) * d + c[:, 3])
+    key = key[:m - 300]
+    keys = np.full(m, INT_MAX, np.int32)
+    keys[:len(key)] = key
+    xyz = np.zeros((m, 3), np.int32)
+    xyz[:len(key)] = np.stack([(key // d ** 2) % d, (key // d) % d,
+                               key % d], 1)
+    args = [torch.from_numpy(a).to(dev) for a in (keys, xyz)]
+    dims = torch.tensor([d, d, d], dtype=torch.int32, device=dev)
+    offs = offsets(1)
+    got = jk.sorted_key_rules_join(*args, dims, offs)
+    assert torch.equal(got, jk.sorted_key_rules_join_plain(*args, dims,
+                                                           offs))
+    assert int((got >= 0).sum()) > 10000
