@@ -10,8 +10,13 @@ non-zero):
   2. a warm-up request of the flagship model and a warm-up all-params train
      step record the arguments each kernel gets on the two main paths; each
      kernel is then held against its plain PyTorch version on those inputs
-     (max-abs error, tolerance, kernel / plain / library ms, and the bound
-     of the card);
+     (max-abs error, tolerance, the bound of the card) and timed: the
+     kernel's and the library call's device time (``device_ms``,
+     ``library_device_ms``: the profiler's device time over 20 calls, the
+     time kernels are ranked on), CUDA events around 10 back-to-back calls
+     of the kernel, the plain version and the library call (``ms``,
+     ``plain_ms``, ``library_ms``: host gaps included), and the wrapper's
+     host time a call (``host_us``);
   3. the serving path: >= 3 requests (host batch -> test_forward on the
      card -> get_instances) of 250k-point rooms at full flagship width, with
      every launch counter set to 0 just before and read just after, then
@@ -65,21 +70,6 @@ def card_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
-    import torch
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
@@ -92,50 +82,13 @@ def bound(byts: float, flops: float, dtype) -> tuple[float, str]:
                                         else 'operations')
 
 
-class Recorder:
-    """Wraps the kernel wrappers at their call sites during one run and
-    keeps a clone of the arguments of every call."""
-
-    def __init__(self, sites):
-        self.sites = sites          # [(module, attribute name)]
-        self.calls: dict[str, list] = {}
-        self._saved = []
-
-    def __enter__(self):
-        import torch
-        for mod, name in self.sites:
-            orig = getattr(mod, name)
-
-            def wrapped(*args, _orig=orig, _name=name, **kw):
-                keep = [a.detach().clone() if isinstance(a, torch.Tensor)
-                        else a for a in args]
-                self.calls.setdefault(_name, []).append((keep, kw))
-                return _orig(*args, **kw)
-            # a wrapper wrapped in its own module counts its launches on
-            # this stand-in (recording runs are not the counted main path)
-            wrapped.launches = 0
-            self._saved.append((mod, name, orig))
-            setattr(mod, name, wrapped)
-        return self
-
-    def __exit__(self, *exc):
-        for mod, name, orig in self._saved:
-            setattr(mod, name, orig)
-
-
-def pick(calls, pred, what):
-    for args, kw in calls:
-        if pred(args, kw):
-            return args, kw
-    raise RuntimeError(f'no recorded call for {what}')
-
-
 def profile(fn, label: str, card: str) -> None:
     """Wall time, device busy time, idle share and the top 12 kernels of
     one run of ``fn`` under the profiler."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from softgroup_tpu_torch.time_kernels import kernel_rows
     torch.cuda.synchronize()
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
@@ -143,16 +96,7 @@ def profile(fn, label: str, card: str) -> None:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:   # kernels only, no ops
-            continue
-        us = getattr(ev, 'self_device_time_total', None)
-        if us is None:
-            us = getattr(ev, 'self_cuda_time_total', 0.0)
-        if us > 0:
-            rows.append((us / 1e3, ev.count, ev.key))
-    rows.sort(reverse=True)
+    rows = sorted(kernel_rows(prof), reverse=True)
     busy_ms = sum(r[0] for r in rows)
     log(f'[profile] {label}: wall {wall_ms:.3f} ms, device busy '
         f'{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.4f} '
@@ -186,6 +130,8 @@ def main() -> int:
         from softgroup_tpu_torch.ops import grouping, kernels
         from softgroup_tpu_torch.ops import join_kernel as jk
         from softgroup_tpu_torch.ops import rulebook, sparse_conv
+        from softgroup_tpu_torch.time_kernels import (
+            Recorder, cuda_ms, device_ms, host_us, pick)
     except ImportError as e:
         print(f'chip_smoke: the port is not importable here: {e}',
               file=sys.stderr)
@@ -498,22 +444,30 @@ def main() -> int:
         scale = float(want.double().abs().max()) if want.numel() else 0.0
         tol = c['tol_rel'] * max(1.0, scale)
         ok = err <= tol
-        ms = cuda_ms(c['fn'])
-        plain_ms = cuda_ms(c['plain'], reps=3, warm=1)
-        lib_ms = cuda_ms(c['library']) if c['library'] else None
-        bound_ms, bound_by = c['bound']
-        log(f"[kernel] {c['name']}: max_abs_err={err:.6g} tol={tol:.6g} "
-            f"({c['reason']}) ms={ms:.6f} plain_ms={plain_ms:.6f} "
-            f"library_ms={lib_ms} bound_ms={bound_ms:.6f} "
-            f"({bound_by}) [{card}] {'OK' if ok else 'FAIL'}")
         if not ok:
+            log(f"[kernel] {c['name']}: max_abs_err={err:.6g} "
+                f"tol={tol:.6g} ({c['reason']}) [{card}] FAIL")
             raise RuntimeError(f"{c['name']} disagrees with its plain "
                                f"version: {err} > {tol}")
+        ms = cuda_ms(c['fn'])
+        dev_ms = device_ms(c['fn'])
+        wrap_us = host_us(c['fn'])
+        plain_ms = cuda_ms(c['plain'], reps=3, warm=1)
+        lib = c['library']
+        lib_ms = cuda_ms(lib) if lib else None
+        lib_dev_ms = device_ms(lib) if lib else None
+        bound_ms, bound_by = c['bound']
+        log(f"[kernel] {c['name']}: max_abs_err={err:.6g} tol={tol:.6g} "
+            f"({c['reason']}) device_ms={dev_ms:.6f} ms={ms:.6f} "
+            f"host_us={wrap_us:.3f} plain_ms={plain_ms:.6f} "
+            f"library_device_ms={lib_dev_ms} library_ms={lib_ms} "
+            f"bound_ms={bound_ms:.6f} ({bound_by}) [{card}] OK")
         results.append(dict(
             name=c['name'], key=c['key'], route=c['route'],
             source=c['source'], replaces=c['replaces'], max_abs_err=err,
-            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=lib_ms))
+            ms=ms, device_ms=dev_ms, host_us=wrap_us, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+            library_device_ms=lib_dev_ms))
     del cases
     torch.cuda.empty_cache()
     phase_done('kernels vs plain')

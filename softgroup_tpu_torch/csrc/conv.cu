@@ -9,23 +9,53 @@
 // table; it replaces conv_kernel.py:_keyed_kernel (keyed_windowed_conv).
 // No (K, V) rulebook is ever written for K4.
 //
-// Design: one block owns BM=64 output rows x BN (32 or 64) output channels.
-// Per tap it fetches the tile's 64 neighbour indices into shared memory and
-// skips the tap when all are -1 (most taps of a surface scan, and every tap
-// of the padded tail); otherwise it walks Cin in chunks of 32, gathering the
-// neighbour rows (zero rows for -1) and W[k]'s chunk into shared memory, and
-// accumulates in f32: bf16 inputs on the tensor cores (wmma 16x16x16,
-// i.e. mma.sync), f32 inputs with CUDA-core FMA (the tensor cores would
-// round them to TF32).  The output is rounded once to the input type.  Any
-// Cin / Cout works (ragged chunks are zero-filled), so there is no channel
-// cap.
-//
 // Bound on the H100 at the backbone's shapes: the FLOPs of the taps that
 // hit (2 * hits * Cin * Cout) against the bytes of one read of feats, W,
-// the rules and one write of the output; at 32-64 channels that is bytes.
-// What holds the kernel above it is the gather into shared memory and one
-// block barrier pair per 32-channel chunk per tap; the deep levels
-// (V <= 1024) launch only 8-64 blocks and are latency-bound.
+// the rules and one write of the output; at 32-384 channels that is bytes,
+// and the rulebook (27 x 4 B a voxel) is about half of them at 32 channels.
+// The gathered rows come from L2 (feats is a few MB) and a surface tile of
+// 64 voxels hits ~24 of the 27 taps with only ~1/4 of its rows each, so a
+// kernel loses its time to latency (rules, then gathers, then MMAs, each
+// waiting on the one before) and to MMAs on rows that miss.
+//
+// K1, bf16 (rulebook_conv_tc, the serving and training paths): a pipelined
+// gather-GEMM.  A block owns BM = 64 output rows x BN (32 or 64) channels.
+//   * Rules up front: its prologue reads the tile's whole (K, 64) rule slab
+//     (each warp its own taps, all loads in flight at once, 128 contiguous
+//     bytes each), and a warp vote per tap gives the mask of taps with any
+//     hit: one barrier in place of a dependent rule load and a block vote
+//     per tap.
+//   * The product's K dimension is the hit taps' channels, cut in pieces
+//     (one tap, 32 channels; 16 when Cin <= 16).  A step takes 32 channels
+//     of pieces, walked through a ring of 3 dynamic shared-memory stages
+//     (31 or 37 KB with the rule slab): the gathered feats rows and W's
+//     matching rows arrive by cp.async (16-byte copies; 4-byte copies or
+//     plain loads where the widths do not allow 16; rows that miss and
+//     ragged channels are zeroed by shared-memory stores, and a thread
+//     remembers which of its slots hold zeros already), so the copies of
+//     steps s+1 and s+2 are in flight during the MMA of step s, with one
+//     wait and one barrier a step.  Hopper's TMA has no row gather;
+//     cp.async is the tool.  What hides the latency best is blocks: 6-7
+//     of them share an SM, where deeper rings or 64-channel steps (fewer
+//     blocks) ran slower at every level.
+//   * Tensor cores by mma.sync m16n8k16 (bf16 -> f32) fed by ldmatrix from
+//     rows padded by 16 bytes (conflict-free): four warps, 16 rows each.  A
+//     warp skips the MMAs of a piece in which none of its 16 rows hits (a
+//     vote at issue time).  wgmma would run the MMAs faster but only on
+//     64-row groups, so no strip could skip its own, and its asynchronous
+//     groups and descriptors add a fence per step to a step that is
+//     already short; mma.sync keeps the step simple.
+//   * Epilogue from registers: the f32 sums are rounded once to bf16, and a
+//     quad of lanes swaps words so that each lane stores 16 bytes.
+//   * Deep levels (few tiles): ``split`` blocks per tile cut the step list
+//     (not the tap range) into equal parts; each writes an f32 slab that
+//     sum_partials adds in slab order (deterministic, no atomics).
+// K1, f32 (the small card-vs-CPU checks only) stays on the CUDA-core FMA
+// kernel gather_gemm (no TF32).  K4 runs on gather_gemm_tc / gather_gemm:
+// per tap a block fetches its 64 neighbours, skips the tap when all miss,
+// gathers rows and W's chunk into shared memory and accumulates on wmma
+// 16x16x16 (bf16) or FMA (f32), two barriers a 32-channel chunk.  Any Cin /
+// Cout works in every kernel (ragged chunks are zero-filled).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,9 +84,9 @@ __device__ __forceinline__ int lower_bound(const int* a, int n, int q) {
 // neighbour of output row v at tap k, from an explicit rulebook
 struct RulebookTaps {
   const int* rules;
-  int v_out;
+  int ld;  // row stride of the rulebook (>= v_out)
   __device__ int operator()(int k, int v) const {
-    return rules[(size_t)k * v_out + v];
+    return rules[(size_t)k * ld + v];
   }
 };
 
@@ -328,6 +358,420 @@ int launch(const void* feats, const void* w, Taps taps, int n_taps,
 }
 
 // ---------------------------------------------------------------------------
+// K1, bf16: the pipelined gather-GEMM (design note at the top of the file)
+constexpr int K1_NT = 128;       // 4 warps, 16 output rows each
+constexpr int K1_STAGES = 3;     // shared-memory ring depth
+constexpr int K1_BK = 32;        // gathered channels a step
+constexpr int K1_MAX_TAPS = 32;  // the hit-tap mask is one 32-bit word
+constexpr int K1_PAD = 8;        // bf16 of row padding: 16 bytes, so the 8
+                                 // rows of an ldmatrix hit 8 bank groups
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+// cp.async of 16 / 4 bytes (the .ca form: cached in L1 as well as L2)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+// c += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Copy modes of an operand: 16 = 16-byte cp.async, 4 = 4-byte cp.async,
+// 2 = plain loads and stores (odd widths or unaligned data).
+inline int copy_mode(const void* p, int width) {
+  const uintptr_t a = (uintptr_t)p;
+  if (width % 8 == 0 && a % 16 == 0) return 16;
+  if (width % 2 == 0 && a % 4 == 0) return 4;
+  return 2;
+}
+
+// the layout of a K1 block's dynamic shared memory, in bytes
+template <int BN>
+struct K1Smem {
+  static constexpr int A_LD = K1_BK + K1_PAD, B_LD = BN + K1_PAD;
+  static constexpr int A = K1_STAGES * BM * A_LD * 2;      // gathered rows
+  static constexpr int B = K1_STAGES * K1_BK * B_LD * 2;   // W's rows
+  static constexpr int R = K1_MAX_TAPS * BM * 4;           // rule slab
+  static constexpr int BYTES = A + B + R + K1_MAX_TAPS * 4;  // + hit flags
+};
+
+// x[i] for a small array and an index known only at run time, without
+// moving the array to local memory
+template <int N>
+__device__ __forceinline__ int pick(const int (&x)[N], int i) {
+  int v = x[0];
+#pragma unroll
+  for (int j = 1; j < N; ++j) v = i == j ? x[j] : v;
+  return v;
+}
+
+// feats (V_in, cin), w (K, cin, cout), rules (K, ld) int32 -> out
+// (v_out, cout) bf16, or with gridDim.z > 1 the f32 slab z of partial
+// (split, v_out, cout).  Grid (tiles of BM rows, tiles of BN columns, split).
+// The K dimension of the tile's product is the hit taps' channels, cut in
+// pieces (one tap, PW channels); a step takes P = K1_BK / PW pieces.
+template <int BN, int PW>
+__global__ void __launch_bounds__(K1_NT)
+rulebook_conv_tc(const __nv_bfloat16* __restrict__ feats,
+                 const __nv_bfloat16* __restrict__ w,
+                 const int* __restrict__ rules, int ld, int n_taps,
+                 int v_out, int cin, int cout, int amode, int bmode,
+                 __nv_bfloat16* __restrict__ out, float* __restrict__ partial) {
+  using L = K1Smem<BN>;
+  constexpr int NW = K1_NT / 32, NJ = BN / 8, P = K1_BK / PW;
+  extern __shared__ __align__(128) unsigned char k1_smem[];
+  auto a_s = reinterpret_cast<__nv_bfloat16(*)[BM][L::A_LD]>(k1_smem);
+  auto b_s =
+      reinterpret_cast<__nv_bfloat16(*)[K1_BK][L::B_LD]>(k1_smem + L::A);
+  auto rule_s = reinterpret_cast<int(*)[BM]>(k1_smem + L::A + L::B);
+  int* hit_s = reinterpret_cast<int*>(k1_smem + L::A + L::B + L::R);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
+
+  // prologue: the tile's rule slab (warp w reads taps w, w + 4, ...: all
+  // its loads in flight at once), and which taps hit any of its rows
+  constexpr int TPW = K1_MAX_TAPS / NW, RPL = BM / 32;
+  int rv[TPW][RPL];
+#pragma unroll
+  for (int q = 0; q < TPW; ++q)
+#pragma unroll
+    for (int h = 0; h < RPL; ++h) {
+      const int k = warp + q * NW, r = lane + 32 * h;
+      rv[q][h] = k < n_taps && row0 + r < v_out
+                     ? __ldg(rules + (size_t)k * ld + row0 + r) : -1;
+    }
+#pragma unroll
+  for (int q = 0; q < TPW; ++q) {
+    const int k = warp + q * NW;
+    if (k >= n_taps) break;  // warp-uniform
+    int hit = 0;
+#pragma unroll
+    for (int h = 0; h < RPL; ++h) {
+      rule_s[k][lane + 32 * h] = rv[q][h];
+      hit |= rv[q][h] >= 0;
+    }
+    hit = __any_sync(0xffffffffu, hit);
+    if (lane == 0) hit_s[k] = hit;
+  }
+  __syncthreads();
+  const unsigned taps =
+      __ballot_sync(0xffffffffu, lane < n_taps && hit_s[lane]);
+  const int n_chunks = (cin + PW - 1) / PW;  // pieces a hit tap
+  const int n_pieces = __popc(taps) * n_chunks;
+  const int n_steps = (n_pieces + P - 1) / P;
+  const int s_begin = (int)((long long)n_steps * blockIdx.z / gridDim.z);
+  const int s_end = (int)((long long)n_steps * (blockIdx.z + 1) / gridDim.z);
+
+  // the issue cursor over pieces: a piece's tap is the lowest set bit of
+  // ``rest``, its channels start at chunk * PW
+  int piece = s_begin * P;
+  unsigned rest = taps;
+  int chunk = piece % n_chunks;
+  for (int h = piece / n_chunks; h > 0; --h) rest &= rest - 1;
+  int s_issue = s_begin;
+  // bit stage * P + q: this warp's 16 rows hit something in piece q of the
+  // step in that stage (else the warp skips the piece's MMA)
+  unsigned strip = 0;
+  // the 16- and 4-byte copy modes give a thread the same A slots (row,
+  // column) in every step: bit stage * (slots a stage) + slot says that
+  // this thread's slot of that stage holds zeros, so a row that misses
+  // again is not zeroed again (3/4 of a surface tile's rows miss a tap)
+  unsigned long long zeroed = 0;
+  static_assert(K1_STAGES * BM / (K1_NT / (K1_BK / 2)) <= 64,
+                "one bit a slot");
+
+  auto issue = [&](int stage) {
+    if (s_issue < s_end) {
+      int pk[P], pc[P];  // each piece's tap (-1 past the end), channel 0
+      unsigned bits = 0;
+#pragma unroll
+      for (int q = 0; q < P; ++q) {
+        pk[q] = -1;
+        pc[q] = cin;  // past the end: every channel out of range, zeros
+        if (piece < n_pieces) {
+          pk[q] = __ffs(rest) - 1;
+          pc[q] = chunk * PW;
+          if (++chunk == n_chunks) {
+            chunk = 0;
+            rest &= rest - 1;
+          }
+          ++piece;
+          const int r = rule_s[pk[q]][warp * 16 + (lane & 15)];
+          bits |= (__ballot_sync(0xffffffffu, r >= 0) ? 1u : 0u) << q;
+        }
+      }
+      strip = (strip & ~(((1u << P) - 1) << (stage * P))) |
+              (bits << (stage * P));
+      // A: the BM gathered rows; a thread keeps one column slot, so one
+      // piece, and a row that misses is zeroed by a store, not a copy
+      if (amode == 16) {
+        constexpr int V = K1_BK / 8, RI = K1_NT / V;
+        const int c = (tid % V) * 8, q = c / PW;
+        const int k = pick(pk, q), col = pick(pc, q) + c % PW;
+        const int* rk = rule_s[k < 0 ? 0 : k];
+#pragma unroll
+        for (int it = 0; it < BM / RI; ++it) {
+          const int r = tid / V + it * RI, src = rk[r];
+          const unsigned long long bit = 1ull << (stage * (BM / RI) + it);
+          if (src >= 0 && col < cin) {
+            cp_async16(&a_s[stage][r][c], feats + (size_t)src * cin + col);
+            zeroed &= ~bit;
+          } else if (!(zeroed & bit)) {
+            *reinterpret_cast<uint4*>(&a_s[stage][r][c]) = uint4{0, 0, 0, 0};
+            zeroed |= bit;
+          }
+        }
+      } else if (amode == 4) {
+        constexpr int V = K1_BK / 2, RI = K1_NT / V;
+        const int c = (tid % V) * 2, q = c / PW;
+        const int k = pick(pk, q), col = pick(pc, q) + c % PW;
+        const int* rk = rule_s[k < 0 ? 0 : k];
+#pragma unroll
+        for (int it = 0; it < BM / RI; ++it) {
+          const int r = tid / V + it * RI, src = rk[r];
+          const unsigned long long bit = 1ull << (stage * (BM / RI) + it);
+          if (src >= 0 && col < cin) {
+            cp_async4(&a_s[stage][r][c], feats + (size_t)src * cin + col);
+            zeroed &= ~bit;
+          } else if (!(zeroed & bit)) {
+            *reinterpret_cast<unsigned*>(&a_s[stage][r][c]) = 0u;
+            zeroed |= bit;
+          }
+        }
+      } else {
+        constexpr int RI = K1_NT / K1_BK;
+        const int c = tid % K1_BK, q = c / PW;
+        const int k = pick(pk, q), col = pick(pc, q) + c % PW;
+        const int* rk = rule_s[k < 0 ? 0 : k];
+        for (int it = 0; it < BM / RI; ++it) {
+          const int r = tid / K1_BK + it * RI, src = rk[r];
+          a_s[stage][r][c] = src >= 0 && col < cin
+                                 ? feats[(size_t)src * cin + col] : zero;
+        }
+      }
+      // B: row c of the stage is row pc[c / PW] + c % PW of W[pk[c / PW]],
+      // columns col0 .. col0 + BN
+      if (bmode == 16) {
+        constexpr int V = BN / 8, RI = K1_NT / V;
+        const int n = (tid % V) * 8;
+#pragma unroll
+        for (int it = 0; it < K1_BK / RI; ++it) {
+          const int c = tid / V + it * RI, q = c / PW;
+          const int k = pick(pk, q), row = pick(pc, q) + c % PW;
+          if (row < cin && col0 + n < cout)
+            cp_async16(&b_s[stage][c][n],
+                       w + ((size_t)k * cin + row) * cout + col0 + n);
+          else
+            *reinterpret_cast<uint4*>(&b_s[stage][c][n]) = uint4{0, 0, 0, 0};
+        }
+      } else if (bmode == 4) {
+        constexpr int V = BN / 2, RI = K1_NT / V;
+        const int n = (tid % V) * 2;
+#pragma unroll 4
+        for (int it = 0; it < K1_BK / RI; ++it) {
+          const int c = tid / V + it * RI, q = c / PW;
+          const int k = pick(pk, q), row = pick(pc, q) + c % PW;
+          if (row < cin && col0 + n < cout)
+            cp_async4(&b_s[stage][c][n],
+                      w + ((size_t)k * cin + row) * cout + col0 + n);
+          else
+            *reinterpret_cast<unsigned*>(&b_s[stage][c][n]) = 0u;
+        }
+      } else {
+        for (int i = tid; i < K1_BK * BN; i += K1_NT) {
+          const int c = i / BN, n = i % BN, q = c / PW;
+          const int k = pick(pk, q), row = pick(pc, q) + c % PW;
+          b_s[stage][c][n] = row < cin && col0 + n < cout
+                                 ? w[((size_t)k * cin + row) * cout + col0 + n]
+                                 : zero;
+        }
+      }
+    }
+    ++s_issue;
+    cp_async_commit();  // one group a step, empty past the end
+  };
+
+  float acc[NJ][4];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < K1_STAGES - 1; ++st) issue(st);
+  for (int s = s_begin; s < s_end; ++s) {
+    const int i = s - s_begin, st = i % K1_STAGES;
+    cp_async_wait<K1_STAGES - 2>();  // this thread's copies of step s landed
+    __syncthreads();  // everyone's landed; everyone is done with step s - 1
+    const unsigned live = strip >> (st * P);  // before the issue reuses bits
+    issue((i + K1_STAGES - 1) % K1_STAGES);  // into step s - 1's stage
+    // lanes 0-15 address rows 0-15 at column kk, lanes 16-31 at kk + 8:
+    // the four 8x8 matrices of the m16n8k16 A fragment, and for B (read
+    // transposed) the k-halves of n-tiles j and j + 1
+    const int r16 = lane & 15, c8 = (lane >> 4) * 8;
+#pragma unroll
+    for (int q = 0; q < P; ++q) {
+      if (!((live >> q) & 1u)) continue;  // warp-uniform: all 16 rows miss
+#pragma unroll
+      for (int kk = q * PW; kk < (q + 1) * PW; kk += 16) {
+        unsigned a[4];
+        ldmatrix_x4(a, &a_s[st][warp * 16 + r16][kk + c8]);
+#pragma unroll
+        for (int j = 0; j < NJ; j += 2) {
+          unsigned b[4];
+          ldmatrix_x4_trans(b, &b_s[st][kk + r16][j * 8 + c8]);
+          mma_bf16(acc[j], a, b[0], b[1]);
+          mma_bf16(acc[j + 1], a, b[2], b[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: lane (g, t) of the warp holds rows g and g + 8 of its strip,
+  // columns 8j + 2t and 8j + 2t + 1 of every n-tile j
+  const int g = lane >> 2, t = lane & 3;
+  const bool vec = partial == nullptr && cout % 8 == 0 &&
+                   col0 + BN <= cout && (uintptr_t)out % 16 == 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + warp * 16 + g + half * 8;
+    if (vec) {
+      // 4 n-tiles at a time: lane t collects n-tile q0 + t's 8 columns
+      // (one bf16 pair from each lane of its quad) and stores 16 bytes
+#pragma unroll
+      for (int q0 = 0; q0 < NJ; q0 += 4) {
+        unsigned wd[4], o[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          wd[q] = pack_bf16(acc[q0 + q][2 * half], acc[q0 + q][2 * half + 1]);
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          const int give = (t + s) & 3, from = (t - s) & 3;
+          const unsigned offer = give == 0 ? wd[0] : give == 1 ? wd[1]
+                                 : give == 2 ? wd[2] : wd[3];
+          const unsigned got =
+              __shfl_sync(0xffffffffu, offer, (lane & ~3) | from);
+#pragma unroll
+          for (int p = 0; p < 4; ++p)
+            if (p == from) o[p] = got;
+        }
+        if (row < v_out)
+          *reinterpret_cast<uint4*>(out + (size_t)row * cout + col0 +
+                                    (q0 + t) * 8) =
+              make_uint4(o[0], o[1], o[2], o[3]);
+      }
+    } else if (row < v_out) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = col0 + j * 8 + 2 * t + e;
+          const float v = acc[j][2 * half + e];
+          if (col >= cout) continue;
+          if (partial)
+            partial[((size_t)blockIdx.z * v_out + row) * cout + col] = v;
+          else
+            out[(size_t)row * cout + col] = __float2bfloat16_rn(v);
+        }
+      }
+    }
+  }
+}
+
+template <int BN, int PW>
+int launch_k1_tile(const void* feats, const void* w, const int* rules,
+                   int ld, int n_taps, int v_out, int cin, int cout,
+                   int split, void* out, float* part, cudaStream_t stream) {
+  constexpr int bytes = K1Smem<BN>::BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(
+      rulebook_conv_tc<BN, PW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((v_out + BM - 1) / BM, (cout + BN - 1) / BN, split);
+  rulebook_conv_tc<BN, PW><<<grid, K1_NT, bytes, stream>>>(
+      (const __nv_bfloat16*)feats, (const __nv_bfloat16*)w, rules, ld,
+      n_taps, v_out, cin, cout, copy_mode(feats, cin), copy_mode(w, cout),
+      (__nv_bfloat16*)out, part);
+  return (int)cudaSuccess;
+}
+
+// pieces of 16 channels when Cin <= 16 (the input conv: two taps a step),
+// else 32
+template <int BN>
+int launch_k1_cols(const void* feats, const void* w, const int* rules,
+                   int ld, int n_taps, int v_out, int cin, int cout,
+                   int split, void* out, float* part, cudaStream_t stream) {
+  if (cin <= 16)
+    return launch_k1_tile<BN, 16>(feats, w, rules, ld, n_taps, v_out, cin,
+                                  cout, split, out, part, stream);
+  return launch_k1_tile<BN, 32>(feats, w, rules, ld, n_taps, v_out, cin,
+                                cout, split, out, part, stream);
+}
+
+int launch_k1_bf16(const void* feats, const void* w, const int* rules,
+                   int ld, int n_taps, int v_out, int cin, int cout,
+                   void* out, int split, float* partial,
+                   cudaStream_t stream) {
+  if (v_out <= 0 || cout <= 0) return (int)cudaGetLastError();
+  if (n_taps < 1 || n_taps > K1_MAX_TAPS || ld < v_out || split < 1 ||
+      split > 65535 || (split > 1 && !partial))
+    return (int)cudaErrorInvalidValue;
+  float* part = split > 1 ? partial : nullptr;
+  const int rc =
+      cout <= 32 ? launch_k1_cols<32>(feats, w, rules, ld, n_taps, v_out,
+                                      cin, cout, split, out, part, stream)
+                 : launch_k1_cols<64>(feats, w, rules, ld, n_taps, v_out,
+                                      cin, cout, split, out, part, stream);
+  if (rc != (int)cudaSuccess) return rc;
+  if (part) {
+    const long long n = (long long)v_out * cout;
+    long long blocks = (n + 255) / 256;
+    if (blocks > 132 * 8) blocks = 132 * 8;
+    sum_partials<__nv_bfloat16><<<(unsigned)blocks, 256, 0, stream>>>(
+        part, split, n, (__nv_bfloat16*)out);
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // K5: weight gradient of the rulebook conv (sg_conv_dw)
 //
 //   dW[k, i, j] = sum_v feats[rules[k, v], i] * g[v, j]      (-1 adds 0)
@@ -580,17 +1024,22 @@ extern "C" int sg_conv_dw(const void* feats, const void* g, const void* rules,
   return (int)cudaGetLastError();
 }
 
-// dtype: 0 = float32, 1 = bfloat16 (feats, W and out share it)
+// dtype: 0 = float32, 1 = bfloat16 (feats, W and out share it); rules is
+// (n_taps, ld) int32 with ld >= v_out.  bf16: split blocks per tile cut its
+// step list (1 <= split <= 65535); f32: they cut the tap range (split <=
+// n_taps).  split > 1 needs the f32 scratch ``partial`` (split, v_out, cout).
 extern "C" int sg_rulebook_conv(const void* feats, const void* w,
-                                const void* rules, int n_taps, int v_out,
-                                int cin, int cout, void* out,
+                                const void* rules, int ld, int n_taps,
+                                int v_out, int cin, int cout, void* out,
                                 int dtype, int split, void* partial,
                                 void* stream) {
-  RulebookTaps taps{(const int*)rules, v_out};
+  if (cin < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(feats, w, taps, n_taps, v_out, cin, cout,
-                                 out, split, (float*)partial, s);
+    return launch_k1_bf16(feats, w, (const int*)rules, ld, n_taps, v_out,
+                          cin, cout, out, split, (float*)partial, s);
+  if (ld < v_out) return (int)cudaErrorInvalidValue;
+  RulebookTaps taps{(const int*)rules, ld};
   return launch<float>(feats, w, taps, n_taps, v_out, cin, cout, out,
                        split, (float*)partial, s);
 }

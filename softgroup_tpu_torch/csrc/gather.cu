@@ -11,44 +11,143 @@
 // bytes.
 //
 // Bound on the H100: bytes only (one read of the indices and gathered rows,
-// one write of the output).  Design: one thread per 16-byte vector of an
-// output row when the row size and both pointers allow it, else per 4-, 2-
-// or 1-byte word; neighbouring threads copy neighbouring vectors of a row,
-// so a row of 64 bytes is one 64-byte transaction.  Clamping matches the
-// reference's gather semantics and keeps every read in bounds.
+// one write of the output).  The sources on the main path are small (64 KB
+// of cell labels, a few MB of voxel features) and stay in L2, so a gather
+// costs its launch plus the instructions and memory transactions of each
+// thread; the design cuts both:
+//   * rows of 1, 2, 4 or 8 bytes (the int32 cell labels, the top_c gather):
+//     a thread writes the 16 bytes of 16 / row_bytes consecutive output
+//     rows.  It reads their indices with 16-byte loads, the rows with
+//     read-only loads from the cached table, and stores one 16-byte vector;
+//     the ragged tail and unaligned indices take a scalar loop;
+//   * wider rows: one thread per 16-byte vector of an output row (devoxelize's
+//     64-byte rows, the (P, 4) f32 entries), or per 4-, 2- or 1-byte word
+//     where the row size or a pointer does not allow 16; neighbouring
+//     threads copy neighbouring vectors, so a 64-byte row is one
+//     transaction.  The row of a thread is a shift of its index when the
+//     vectors per row are a power of two, else one 32-bit division;
+//   * all index math is 32-bit (the launcher refuses a launch whose thread
+//     count does not fit), and the indices are read as int32 or int64 as
+//     given, so the caller casts nothing.
+// Clamping matches the reference's gather semantics and keeps every read in
+// bounds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <climits>
 #include <cstdint>
 
 namespace {
 
-template <typename V>
-__global__ void row_gather(const V* __restrict__ src,
-                           const int* __restrict__ idx, int n_src,
-                           long long n_out, int vec_per_row,
-                           V* __restrict__ out) {
-  const long long total = n_out * vec_per_row;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += (long long)gridDim.x * blockDim.x) {
-    const long long i = t / vec_per_row;
-    const int c = (int)(t - i * vec_per_row);
-    int j = idx[i];
-    j = j < 0 ? 0 : (j >= n_src ? n_src - 1 : j);
-    out[t] = src[(long long)j * vec_per_row + c];
+template <typename I>
+__device__ __forceinline__ long long clamp_row(I j, int n_src) {
+  return j < 0 ? 0 : (j >= (I)n_src ? n_src - 1 : (long long)j);
+}
+
+// one thread per V-sized vector of an output row
+template <typename V, typename I, bool POW2>
+__global__ void row_gather_vec(const V* __restrict__ src,
+                               const I* __restrict__ idx, int n_src,
+                               int total, int vec_per_row, int shift,
+                               V* __restrict__ out) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= total) return;
+  const int i = POW2 ? t >> shift : t / vec_per_row;
+  const int c = t - i * vec_per_row;
+  out[t] = __ldg(src + clamp_row(__ldg(idx + i), n_src) * vec_per_row + c);
+}
+
+// rows of sizeof(E) < 16 bytes: a thread writes R = 16 / sizeof(E)
+// consecutive output rows as one 16-byte store
+template <typename E, typename I>
+__global__ void row_gather_narrow(const E* __restrict__ src,
+                                  const I* __restrict__ idx, int n_src,
+                                  int n_out, bool idx_vec,
+                                  E* __restrict__ out) {
+  constexpr int R = 16 / sizeof(E);
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= (n_out + R - 1) / R) return;
+  const int i0 = t * R;
+  if (i0 + R <= n_out) {
+    constexpr int IB = R * sizeof(I);  // bytes of indices: 8 .. 128
+    __align__(16) I ix[R];
+    if (idx_vec && IB % 16 == 0) {
+#pragma unroll
+      for (int q = 0; q < IB / 16; ++q)
+        reinterpret_cast<uint4*>(ix)[q] =
+            __ldg(reinterpret_cast<const uint4*>(idx + i0) + q);
+    } else if (idx_vec) {  // IB == 8
+      reinterpret_cast<uint2*>(ix)[0] =
+          __ldg(reinterpret_cast<const uint2*>(idx + i0));
+    } else {
+#pragma unroll
+      for (int r = 0; r < R; ++r) ix[r] = __ldg(idx + i0 + r);
+    }
+    __align__(16) E v[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[r] = __ldg(src + clamp_row(ix[r], n_src));
+    *reinterpret_cast<uint4*>(out + i0) = *reinterpret_cast<const uint4*>(v);
+  } else {
+    for (int i = i0; i < n_out; ++i)
+      out[i] = __ldg(src + clamp_row(__ldg(idx + i), n_src));
   }
 }
 
-template <typename V>
-int launch(const void* src, const int* idx, int n_src, int n_out,
-           long long row_bytes, void* out, cudaStream_t stream) {
-  const int vec = (int)(row_bytes / sizeof(V));
-  const long long total = (long long)n_out * vec;
-  long long blocks = (total + 255) / 256;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  row_gather<V><<<(unsigned)blocks, 256, 0, stream>>>(
-      (const V*)src, idx, n_src, n_out, vec, (V*)out);
+constexpr int GATHER_NT = 256;
+
+template <typename V, typename I>
+int launch_vec(const void* src, const I* idx, int n_src, int n_out,
+               long long row_bytes, void* out, cudaStream_t stream) {
+  const long long vpr = row_bytes / (long long)sizeof(V);
+  const long long total = (long long)n_out * vpr;
+  if (total > INT_MAX) return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((total + GATHER_NT - 1) / GATHER_NT);
+  if ((vpr & (vpr - 1)) == 0) {
+    int shift = 0;
+    while ((1LL << shift) < vpr) ++shift;
+    row_gather_vec<V, I, true><<<blocks, GATHER_NT, 0, stream>>>(
+        (const V*)src, idx, n_src, (int)total, (int)vpr, shift, (V*)out);
+  } else {
+    row_gather_vec<V, I, false><<<blocks, GATHER_NT, 0, stream>>>(
+        (const V*)src, idx, n_src, (int)total, (int)vpr, 0, (V*)out);
+  }
   return (int)cudaGetLastError();
+}
+
+template <typename E, typename I>
+int launch_narrow(const void* src, const I* idx, int n_src, int n_out,
+                  void* out, cudaStream_t stream) {
+  constexpr int R = 16 / sizeof(E);
+  const long long threads = ((long long)n_out + R - 1) / R;
+  const unsigned blocks = (unsigned)((threads + GATHER_NT - 1) / GATHER_NT);
+  const int ib = R * (int)sizeof(I);
+  const bool idx_vec = (uintptr_t)idx % (ib < 16 ? ib : 16) == 0;
+  row_gather_narrow<E, I><<<blocks, GATHER_NT, 0, stream>>>(
+      (const E*)src, idx, n_src, n_out, idx_vec, (E*)out);
+  return (int)cudaGetLastError();
+}
+
+template <typename I>
+int row_gather(const void* src, const I* idx, int n_src, int n_out,
+               long long row_bytes, void* out, cudaStream_t s) {
+  const uintptr_t as = (uintptr_t)src, ao = (uintptr_t)out;
+  if (ao % 16 == 0 && row_bytes < 16 && as % row_bytes == 0) {
+    switch (row_bytes) {
+      case 1: return launch_narrow<uint8_t, I>(src, idx, n_src, n_out, out, s);
+      case 2: return launch_narrow<uint16_t, I>(src, idx, n_src, n_out, out, s);
+      case 4: return launch_narrow<uint32_t, I>(src, idx, n_src, n_out, out, s);
+      case 8: return launch_narrow<uint2, I>(src, idx, n_src, n_out, out, s);
+      default: break;
+    }
+  }
+  const uintptr_t align = as | ao;
+  if (row_bytes % 16 == 0 && align % 16 == 0)
+    return launch_vec<uint4, I>(src, idx, n_src, n_out, row_bytes, out, s);
+  if (row_bytes % 4 == 0 && align % 4 == 0)
+    return launch_vec<uint32_t, I>(src, idx, n_src, n_out, row_bytes, out, s);
+  if (row_bytes % 2 == 0 && align % 2 == 0)
+    return launch_vec<uint16_t, I>(src, idx, n_src, n_out, row_bytes, out, s);
+  return launch_vec<uint8_t, I>(src, idx, n_src, n_out, row_bytes, out, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -196,18 +295,18 @@ extern "C" int sg_segment_sum(const void* values, const void* seg,
   return (int)cudaGetLastError();
 }
 
-extern "C" int sg_row_gather(const void* src, const void* idx, int n_src,
-                             int n_out, long long row_bytes, void* out,
-                             void* stream) {
+// src (n_src, row_bytes) raw bytes, idx (n_out,) int32 or (idx64) int64 ->
+// out (n_out, row_bytes).  Refused (cudaErrorInvalidValue) when the launch's
+// thread count does not fit in 32 bits.
+extern "C" int sg_row_gather(const void* src, const void* idx, int idx64,
+                             int n_src, int n_out, long long row_bytes,
+                             void* out, void* stream) {
   if (n_out <= 0 || row_bytes <= 0) return (int)cudaGetLastError();
+  if (n_src <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const uintptr_t align = (uintptr_t)src | (uintptr_t)out;
-  const int* ix = (const int*)idx;
-  if (row_bytes % 16 == 0 && align % 16 == 0)
-    return launch<uint4>(src, ix, n_src, n_out, row_bytes, out, s);
-  if (row_bytes % 4 == 0 && align % 4 == 0)
-    return launch<uint32_t>(src, ix, n_src, n_out, row_bytes, out, s);
-  if (row_bytes % 2 == 0 && align % 2 == 0)
-    return launch<uint16_t>(src, ix, n_src, n_out, row_bytes, out, s);
-  return launch<uint8_t>(src, ix, n_src, n_out, row_bytes, out, s);
+  if (idx64)
+    return row_gather<long long>(src, (const long long*)idx, n_src, n_out,
+                                 row_bytes, out, s);
+  return row_gather<int>(src, (const int*)idx, n_src, n_out, row_bytes, out,
+                         s);
 }

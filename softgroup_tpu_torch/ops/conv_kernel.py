@@ -1,9 +1,18 @@
 """K1, K4 and K5: sparse 3-D convolution as a gather-GEMM on Hopper.
 
 * K1 ``rulebook_conv`` — ``out[v] = sum_k feats[rules[k, v]] @ W[k]`` over
-  an explicit (K, V_out) rulebook (-1 adds zero).  Replaces
+  an explicit (K <= 32, V_out) rulebook (-1 adds zero).  Replaces
   ``softgroup_tpu/ops/conv_kernel.py:_conv_kernel`` (driven by
-  ``_windowed_conv_core``): every backbone submanifold and k2s2 down conv.
+  ``_windowed_conv_core``): every backbone submanifold and k2s2 down conv,
+  and their feature gradients.  On the H100 it is bound by bytes (the
+  rulebook is about half of them at 32 channels) and held back by latency:
+  a block's gathers wait on its rules, its MMAs on its gathers.  The bf16
+  kernel reads the tile's whole rule slab up front, walks a list of steps
+  (32 channels of (hit tap, channel chunk) pieces) through a 3-stage
+  ring of ``cp.async`` gathers and ``mma.sync`` tensor-core products, and
+  stores 16-byte vectors from registers; deep levels cut each tile's step
+  list over ``split`` blocks.  f32 (the small card-vs-CPU checks) stays on
+  CUDA-core FMA.
 * K4 ``keyed_conv`` — the same conv with neighbours resolved in the kernel
   from sorted linear keys ``((b*D + x)*D + y)*D + z`` on the proposal grid
   (bounds-tested like ``conv_kernel.py:848-871``).  Replaces
@@ -40,9 +49,13 @@ DOWN_OFFS = tuple(itertools.product((0, 1), repeat=3))
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # csrc/conv.cu tiles: 64 output rows x 32 (Cout <= 32) or 64 channels
 _ROWS_PER_BLOCK = 64
+_MAX_TAPS = 32   # K1's hit-tap mask is one 32-bit word
 # a grid with fewer blocks than this (2 per SM of an H100) spreads its taps
 # over several blocks per tile (f32 partial slabs, summed by a second kernel)
 _FILL_BLOCKS = 264
+# the same for the bf16 K1, whose blocks cut a tile's step list: 4 per SM
+# (the deep levels' times at 264, 528 and 1056 on an H100 favour 528)
+_K1_FILL_BLOCKS = 528
 # K5 cuts each tap's V reduction into contiguous ranges of 64-row chunks
 # until a launch has about this many blocks (~15 resident per SM of an
 # H100 at 32 channels): each range is a serial loop, so more blocks mean
@@ -51,15 +64,18 @@ _DW_ROWS = 64
 _DW_FILL_BLOCKS = 2048
 
 
-def _split_taps(v_out: int, cout: int, n_taps: int, like: torch.Tensor):
-    """(split, f32 partial scratch) for a conv launch."""
+def _split(v_out: int, cout: int, parts: int, fill: int) -> int:
+    """Blocks a tile's work is cut over so that the grid has about
+    ``fill`` blocks; ``parts``: the most it can be cut into."""
     cols = 32 if cout <= 32 else 64
     blocks = -(-v_out // _ROWS_PER_BLOCK) * -(-cout // cols)
-    split = 1 if blocks >= _FILL_BLOCKS else \
-        min(n_taps, -(-_FILL_BLOCKS // max(blocks, 1)))
-    partial = torch.empty((split, v_out, cout) if split > 1 else (0,),
-                          dtype=torch.float32, device=like.device)
-    return split, partial
+    return 1 if blocks >= fill else min(parts, -(-fill // max(blocks, 1)))
+
+
+def _partial(split: int, v_out: int, cout: int, like: torch.Tensor):
+    """The f32 (split, v_out, cout) slabs a split launch sums, or None."""
+    return torch.empty((split, v_out, cout), dtype=torch.float32,
+                       device=like.device) if split > 1 else None
 
 
 def rulebook_conv_plain(feats: torch.Tensor, weight: torch.Tensor,
@@ -97,18 +113,34 @@ def rulebook_conv(feats: torch.Tensor, weight: torch.Tensor,
     if feats.device.type == 'cpu':
         return rulebook_conv_plain(feats, weight, rules)
     feats, weight = _prep('rulebook_conv', feats, weight)
-    rules = rules.to(torch.int32).contiguous()
-    kernels.require_cuda('rulebook_conv', feats, weight, rules)
+    rules = rules.to(torch.int32)
+    if rules.stride(-1) != 1:   # a column slice of a wider table is fine
+        rules = rules.contiguous()
+    kernels.require_cuda('rulebook_conv', feats, weight)
+    if rules.device != feats.device:
+        raise ValueError('rulebook_conv: rules on another device')
     if weight.shape[0] != rules.shape[0]:
         raise ValueError('rulebook_conv: weight taps != rulebook taps')
     k, cin, cout = weight.shape
+    if not 1 <= k <= _MAX_TAPS:
+        raise ValueError(f'rulebook_conv: 1 to {_MAX_TAPS} taps, got {k}')
     v_out = rules.shape[1]
     out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
-    split, partial = _split_taps(v_out, cout, k, feats)
-    rc = kernels.lib('conv').sg_rulebook_conv(
-        feats.data_ptr(), weight.data_ptr(), rules.data_ptr(), k, v_out,
-        cin, cout, out.data_ptr(),
-        _DTYPES[feats.dtype], split, partial.data_ptr(), kernels.stream())
+    if feats.dtype == torch.bfloat16:
+        # a tile's steps: 32 channels of (tap, 16- or 32-channel chunk)
+        # pieces (csrc/conv.cu launch_k1_cols)
+        pw = 16 if cin <= 16 else 32
+        split = _split(v_out, cout, -(-k * -(-cin // pw) // (32 // pw)),
+                       _K1_FILL_BLOCKS)
+    else:   # f32 cuts the tap range
+        split = _split(v_out, cout, k, _FILL_BLOCKS)
+    partial = _partial(split, v_out, cout, feats)
+    rc = kernels.entry('conv', 'sg_rulebook_conv')(
+        feats.data_ptr(), weight.data_ptr(), rules.data_ptr(),
+        rules.stride(0), k, v_out, cin, cout, out.data_ptr(),
+        _DTYPES[feats.dtype], split,
+        partial.data_ptr() if split > 1 else None,
+        kernels.stream(feats.device))
     kernels.check(rc, 'rulebook_conv')
     rulebook_conv.launches += 1
     return out
@@ -179,12 +211,14 @@ def keyed_conv(feats: torch.Tensor, weight: torch.Tensor,
     _, cin, cout = weight.shape
     v_out = out_keys.shape[0]
     out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
-    split, partial = _split_taps(v_out, cout, weight.shape[0], feats)
-    rc = kernels.lib('conv').sg_keyed_conv(
+    split = _split(v_out, cout, weight.shape[0], _FILL_BLOCKS)
+    partial = _partial(split, v_out, cout, feats)
+    rc = kernels.entry('conv', 'sg_keyed_conv')(
         feats.data_ptr(), weight.data_ptr(), out_keys.data_ptr(),
         in_keys.data_ptr(), feats.shape[0], v_out, cin, cout, int(d),
         int(strided), out.data_ptr(), _DTYPES[feats.dtype], split,
-        partial.data_ptr(), kernels.stream())
+        partial.data_ptr() if split > 1 else None,
+        kernels.stream(feats.device))
     kernels.check(rc, 'keyed_conv')
     keyed_conv.launches += 1
     return out
@@ -230,10 +264,10 @@ def rulebook_conv_dw(feats: torch.Tensor, g: torch.Tensor,
     split, cpb = _dw_split(k, v_out, cin, cout)
     partial = torch.empty((split, k, cin, cout) if split > 1 else (0,),
                           dtype=torch.float32, device=feats.device)
-    rc = kernels.lib('conv').sg_conv_dw(
+    rc = kernels.entry('conv', 'sg_conv_dw')(
         feats.data_ptr(), g.data_ptr(), rules.data_ptr(), k, v_out, cin,
         cout, _DTYPES[feats.dtype], split, cpb, out.data_ptr(),
-        partial.data_ptr(), kernels.stream())
+        partial.data_ptr(), kernels.stream(feats.device))
     kernels.check(rc, 'rulebook_conv_dw')
     rulebook_conv_dw.launches += 1
     return out

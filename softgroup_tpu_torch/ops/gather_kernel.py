@@ -1,13 +1,19 @@
 """K2 row gather ``out[i] = src[clamp(idx[i], 0, len(src) - 1)]``, K6
 sorted segment sum, and the differentiable gather built on both.
 
-Replaces ``softgroup_tpu/ops/gather_kernel.py:_gather_kernel`` (driven by
-``monotone_row_gather`` / ``monotone_gather_f32``).  On the main path it
+K2 replaces ``softgroup_tpu/ops/gather_kernel.py:_gather_kernel`` (driven
+by ``monotone_row_gather`` / ``monotone_gather_f32``).  On the main path it
 carries devoxelize (voxel features back to points), the grouping entry
 gather and the cell-label gather, plus the proposal-entry gather of
-``clusters_voxelization``.  Kernel source and design note:
-``csrc/gather.cu``.  The copy moves raw bytes, so it is exact for every
-dtype and needs no monotone indices.
+``clusters_voxelization``.  The copy moves raw bytes, so it is exact for
+every dtype and needs no monotone indices.  It is bound by bytes on the
+H100, but its sources sit in L2 and its calls are short, so what it costs
+is the launch, the wrapper's host time and each thread's instructions: rows
+narrower than 16 bytes (the int32 cell labels) go 16 output bytes to a
+thread, wider rows one 16-byte vector to a thread, with 32-bit index math
+and the indices read as int32 or int64 as given (design note:
+``csrc/gather.cu``).  The wrapper casts nothing, builds no view and looks
+its C entry point up once.
 
 K6 ``sorted_segment_sum`` replaces ``gather_kernel.py:_segsum_kernel``
 (driven by ``monotone_segment_sum``): the backward of ``gather_rows``, the
@@ -21,11 +27,15 @@ tensor it takes the plain version below.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import kernels
 
 _SEG_ROWS = 256   # csrc/gather.cu SEG_R: K6's rows per chunk
+_INDEX_TYPES = (torch.int32, torch.int64)   # K2 reads these as they are
+_INT_MAX = 2 ** 31 - 1
 
 
 def row_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -34,20 +44,33 @@ def row_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Gather rows of ``src`` (any dtype, any trailing shape) at ``idx``."""
+    """Gather rows of ``src`` (any dtype, any trailing shape) at the 1-D
+    integer ``idx``."""
     if src.device.type == 'cpu':
         return row_gather_plain(src, idx)
-    if src.shape[0] == 0:
+    n_src, tail = src.shape[0], src.shape[1:]
+    if n_src == 0:
         raise ValueError('row_gather: empty source')
-    src = src.contiguous()
-    idx = idx.to(torch.int32).contiguous()
-    kernels.require_cuda('row_gather', src, idx)
-    out = torch.empty((idx.shape[0],) + tuple(src.shape[1:]),
-                      dtype=src.dtype, device=src.device)
-    row_bytes = src[0].numel() * src.element_size()
-    rc = kernels.lib('gather').sg_row_gather(
-        src.data_ptr(), idx.data_ptr(), src.shape[0], idx.shape[0],
-        row_bytes, out.data_ptr(), kernels.stream())
+    if idx.dtype not in _INDEX_TYPES:
+        idx = idx.to(torch.int32)
+    if not src.is_contiguous():
+        src = src.contiguous()
+    if not idx.is_contiguous():
+        idx = idx.contiguous()
+    if src.device.type != 'cuda' or idx.device != src.device:
+        raise ValueError(f'row_gather: tensors must share one CUDA device, '
+                         f'got {src.device} and {idx.device}')
+    if idx.dim() != 1:
+        raise ValueError('row_gather: idx must be 1-D')
+    n_out = idx.shape[0]
+    row_bytes = math.prod(tail) * src.element_size()
+    if n_out * row_bytes > _INT_MAX or n_src > _INT_MAX:
+        raise ValueError('row_gather: over 2 GiB of output or 2^31 source '
+                         'rows: the kernel indexes in 32 bits')
+    out = torch.empty((n_out,) + tail, dtype=src.dtype, device=src.device)
+    rc = kernels.entry('gather', 'sg_row_gather')(
+        src.data_ptr(), idx.data_ptr(), idx.dtype == torch.int64, n_src,
+        n_out, row_bytes, out.data_ptr(), kernels.stream(src.device))
     kernels.check(rc, 'row_gather')
     row_gather.launches += 1
     return out
@@ -87,10 +110,10 @@ def sorted_segment_sum(values: torch.Tensor, seg: torch.Tensor,
     # and its last row
     parts = torch.empty((2, -(-n // _SEG_ROWS), c), dtype=torch.float32,
                         device=values.device)
-    rc = kernels.lib('gather').sg_segment_sum(
+    rc = kernels.entry('gather', 'sg_segment_sum')(
         values.data_ptr(), seg.data_ptr(), n, num_segments, c,
         int(values.dtype == torch.bfloat16), out.data_ptr(),
-        parts[0].data_ptr(), parts[1].data_ptr(), kernels.stream())
+        parts[0].data_ptr(), parts[1].data_ptr(), kernels.stream(values.device))
     kernels.check(rc, 'sorted_segment_sum')
     sorted_segment_sum.launches += 1
     return out

@@ -87,10 +87,10 @@ def cell_neighbor_join(table_keys: torch.Tensor, centroid: torch.Tensor,
     kernels.require_cuda('cell_neighbor_join', keys, cen, cc, dm, offs_t)
     m, n_off = keys.shape[0], offs_t.shape[0]
     out = torch.empty((n_off, m), dtype=torch.int32, device=dev)
-    rc = kernels.lib('join').sg_cell_join(
+    rc = kernels.entry('join', 'sg_cell_join')(
         keys.data_ptr(), cen.data_ptr(), cc.data_ptr(), dm.data_ptr(),
         offs_t.data_ptr(), n_off, m, radius_sq(radius), out.data_ptr(),
-        kernels.stream())
+        kernels.stream(dev))
     kernels.check(rc, 'cell_neighbor_join')
     cell_neighbor_join.launches += 1
     return out
@@ -137,9 +137,9 @@ def sorted_key_rules_join(table_keys: torch.Tensor, xyz: torch.Tensor,
     kernels.require_cuda('sorted_key_rules_join', keys, xyz, dm, offs_t)
     m, n_off = keys.shape[0], offs_t.shape[0]
     out = torch.empty((n_off, m), dtype=torch.int32, device=dev)
-    rc = kernels.lib('join').sg_rules_join(
+    rc = kernels.entry('join', 'sg_rules_join')(
         keys.data_ptr(), xyz.data_ptr(), dm.data_ptr(), offs_t.data_ptr(),
-        n_off, m, out.data_ptr(), kernels.stream())
+        n_off, m, out.data_ptr(), kernels.stream(dev))
     kernels.check(rc, 'sorted_key_rules_join')
     sorted_key_rules_join.launches += 1
     return out

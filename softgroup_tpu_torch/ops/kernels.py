@@ -8,8 +8,9 @@ source, so an edited source is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU tests import every module.
 
 Every C entry point launches on the stream it is given (the wrapper passes
-``torch.cuda.current_stream()``), allocates nothing, and returns
-``cudaGetLastError()``; ``check`` raises when that is not 0.
+PyTorch's current stream, ``stream``), allocates nothing, and returns
+``cudaGetLastError()``; ``check`` raises when that is not 0.  ``entry``
+hands a wrapper its C function without the build lock.
 """
 
 from __future__ import annotations
@@ -35,12 +36,13 @@ _LL = ctypes.c_longlong
 # C signatures of the entry points, by library
 SIGNATURES = {
     'conv': {
-        'sg_rulebook_conv': (_P, _P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P),
+        'sg_rulebook_conv': (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P,
+                             _P),
         'sg_keyed_conv': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
                           _I, _P, _P),
         'sg_conv_dw': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     },
-    'gather': {'sg_row_gather': (_P, _P, _I, _I, _LL, _P, _P),
+    'gather': {'sg_row_gather': (_P, _P, _I, _I, _I, _LL, _P, _P),
                'sg_segment_sum': (_P, _P, _LL, _I, _I, _I, _P, _P, _P,
                                   _P)},
     'join': {'sg_cell_join': (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
@@ -48,6 +50,7 @@ SIGNATURES = {
 }
 
 _libs: dict = {}
+_fns: dict = {}
 _lock = threading.Lock()
 
 
@@ -126,8 +129,27 @@ def lib(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
+def entry(name: str, fn: str):
+    """The C entry point ``fn`` of library ``name``, looked up (and the
+    library built) once; later calls take no lock."""
+    f = _fns.get(fn)
+    if f is None:
+        f = _fns[fn] = getattr(lib(name), fn)
+    return f
+
+
+# PyTorch's own raw getter of the current stream (the one its generated
+# kernels launch with): a plain int, where ``torch.cuda.current_stream()``
+# builds a Stream object on every call
+_raw_stream = getattr(torch._C, '_cuda_getCurrentRawStream', None)
+
+
+def stream(device: torch.device) -> int:
+    """The current CUDA stream of ``device``, as the integer handle the C
+    entry points take."""
+    if _raw_stream is not None:
+        return _raw_stream(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def check(rc: int, what: str) -> None:

@@ -9,10 +9,14 @@ import numpy as np
 import pytest
 import torch
 
+from softgroup_tpu_torch.data.synthetic import collate_scenes, make_room_scene
 from softgroup_tpu_torch.ops import conv_kernel as ck
 from softgroup_tpu_torch.ops import gather_kernel as gk
 from softgroup_tpu_torch.ops import join_kernel as jk
 from softgroup_tpu_torch.ops.grouping import offsets
+from softgroup_tpu_torch.ops.rulebook import (build_downsample_np,
+                                              build_subm_rules_np)
+from softgroup_tpu_torch.ops.voxelize import voxelize_np
 
 pytestmark = pytest.mark.cuda
 INT_MAX = 2 ** 31 - 1
@@ -41,12 +45,120 @@ def test_rulebook_conv(dev, dtype, k, cin, cout):
     assert float((got - want).abs().max()) <= tol
 
 
+def _room_rulebooks():
+    """(subm rules (27, V), down rules (8, V_coarse)) of a surface-sampled
+    room, built by the port's host rulebook code."""
+    scene = make_room_scene(np.random.RandomState(3), n_points=12000,
+                            n_instances=4)
+    data = collate_scenes([scene], scale=20.0)
+    vox, _, _ = voxelize_np(data['coords'])
+    subm = build_subm_rules_np(vox, data['spatial_shape'])
+    _, down, _, _ = build_downsample_np(vox)
+    return subm, down
+
+
+def _padded(rules: np.ndarray, pad: int) -> np.ndarray:
+    """``rules`` with ``pad`` columns of -1 appended (a capacity's padded
+    tail: whole tiles where every tap misses)."""
+    return np.concatenate([rules, np.full((rules.shape[0], pad), -1,
+                                          np.int32)], 1)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('fill', [1, None], ids=['split1', 'split'])
+@pytest.mark.parametrize('case,cin,cout', [
+    ('subm', 6, 32), ('subm', 32, 32), ('subm', 224, 224),
+    ('subm', 384, 192), ('down', 32, 64), ('subm_grad', 32, 64),
+    ('subm', 7, 19), ('empty', 32, 32)])
+def test_rulebook_conv_room(dev, monkeypatch, dtype, fill, case, cin, cout):
+    """K1 on a room's rulebooks: v_out not a multiple of 64, a padded tail
+    of all-miss tiles, the rules a column slice of a wider table, one
+    block per tile (``fill`` 1) or a tile's steps cut over several; the
+    transposed, flipped weights of the subm feature gradient; odd widths;
+    an all -1 rulebook."""
+    if fill is not None:   # bf16 and f32 grid targets
+        monkeypatch.setattr(ck, '_K1_FILL_BLOCKS', fill)
+        monkeypatch.setattr(ck, '_FILL_BLOCKS', fill)
+    subm, down = _room_rulebooks()
+    rules = down if case == 'down' else subm
+    rules = _padded(rules, 151 if (rules.shape[1] + 150) % 64 == 0 else 150)
+    if case == 'empty':
+        rules = np.full_like(rules, -1)
+    assert rules.shape[1] % 64 != 0
+    v_in = int(rules.max()) + 1 if case != 'empty' else 100
+    g = torch.Generator(device=dev).manual_seed(cin * 1000 + cout)
+    f = torch.randn(v_in, cin, device=dev, generator=g).to(dtype)
+    if case == 'subm_grad':   # as _SubmConv.backward calls it
+        w = torch.randn(rules.shape[0], cout, cin, device=dev, generator=g)
+        w = (w * 0.1).to(dtype).transpose(1, 2).flip(0)
+    else:
+        w = (torch.randn(rules.shape[0], cin, cout, device=dev,
+                         generator=g) * 0.1).to(dtype)
+    wide = torch.from_numpy(_padded(rules, 5)).to(dev)
+    r = wide[:, :rules.shape[1]]          # row stride != v_out
+    got = ck.rulebook_conv(f, w, r).double()
+    want = ck.rulebook_conv_plain(f, w, r).double()
+    assert got.shape == (rules.shape[1], cout)
+    tol = (2.0 ** -7 if dtype == torch.bfloat16 else 2e-5) \
+        * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+    if case == 'empty':
+        assert not got.any()
+
+
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32,
                                    torch.int32])
 def test_row_gather_exact(dev, dtype):
     src = (torch.randn(5000, 35, device=dev) * 100).to(dtype)
     idx = torch.randint(-10, 5010, (20000,), device=dev)
     assert torch.equal(gk.row_gather(src, idx), gk.row_gather_plain(src, idx))
+
+
+def _gather_src(case: str, dev):
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    if case == 'labels int32':       # 1-D, 4-byte rows
+        return torch.randint(-1, 16384, (16385,), device=dev, generator=g,
+                             dtype=torch.int32)
+    if case == 'entries f32':        # (P, 4) f32: 16-byte rows
+        return torch.randn(30000, 4, device=dev, generator=g)
+    if case == 'features bf16':      # (V, 32) bf16: 64-byte rows
+        return torch.randn(20000, 32, device=dev, generator=g).bfloat16()
+    if case == 'bytes uint8':        # 3-byte rows
+        return torch.randint(0, 256, (7000, 3), device=dev, generator=g,
+                             dtype=torch.uint8)
+    if case == 'top_c int64':        # 1-D, 8-byte rows
+        return torch.randint(-5, 20, (9000,), device=dev, generator=g)
+    if case == 'unaligned bf16':     # a view 2 bytes off 16-byte alignment
+        big = torch.randn(20000 * 32 + 1, device=dev, generator=g)
+        return big.bfloat16()[1:].view(20000, 32)
+    if case == 'unaligned int32':    # 1-D, 4 bytes off
+        return torch.arange(16386, device=dev, dtype=torch.int32)[1:]
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize('idx_kind', ['int32', 'int64', 'int32 view'])
+@pytest.mark.parametrize('case', ['labels int32', 'entries f32',
+                                  'features bf16', 'bytes uint8',
+                                  'top_c int64', 'unaligned bf16',
+                                  'unaligned int32'])
+def test_row_gather_cases(dev, case, idx_kind):
+    """K2 exact against its plain version on every path of the kernel:
+    rows of 1-8 bytes (16 output bytes a thread, n_out not a multiple of
+    4, so a ragged tail), 16- and 64-byte rows, odd 3-byte rows, unaligned
+    sources, int32 / int64 indices and an unaligned index view, with
+    out-of-range indices at both ends (clamped)."""
+    src = _gather_src(case, dev)
+    n = src.shape[0]
+    g = torch.Generator(device=dev).manual_seed(7)
+    idx = torch.randint(-50, n + 50, (100003,), device=dev, generator=g)
+    idx[:3] = torch.tensor([-2 ** 40, 2 ** 40, n], device=dev)
+    if idx_kind == 'int32 view':     # 4 bytes off 16-byte alignment
+        idx = torch.cat([idx[:1], idx]).to(torch.int32)[1:]
+    elif idx_kind == 'int32':
+        idx = idx.clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32)
+    got = gk.row_gather(src, idx)
+    assert got.data_ptr() % 16 == 0
+    assert torch.equal(got, gk.row_gather_plain(src, idx))
 
 
 def test_cell_join_exact(dev):

@@ -223,3 +223,40 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, '-c', code], cwd=root, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_time_kernels_finds_chip_smoke_cases():
+    """The K1 / K2 cases that ``chip_smoke.py`` and ``time_kernels`` time
+    are picked from a recorded request of the flagship net (bf16, every
+    level): each is found at the shapes named, and the recorder puts the
+    wrappers back."""
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.data.synthetic import make_scene
+    from softgroup_tpu_torch.model import softgroup as sg
+    from softgroup_tpu_torch.ops import conv_kernel, gather_kernel
+    from softgroup_tpu_torch.ops import grouping, sparse_conv
+    from softgroup_tpu_torch.time_kernels import Recorder, k1_k2_args
+    caps = Capacities(
+        points=16384, voxels=(16384, 8192, 4096, 2048, 1024, 512, 256),
+        grouping_points=32768, proposals=32, proposal_entries=32768,
+        instances=32, inst_voxels=(8192, 2048), grouping_cells=4096)
+    cfg = entry.flagship_cfg()
+    net = entry.build_net(cfg, seed=1, device='cpu', bf16=True)
+    with torch.no_grad():   # lift two classes over score_thr, as chip_smoke
+        net.semantic_linear.final_bias[2:4] = 2.5
+    batch = entry.build_batch(make_scene(np.random.RandomState(7),
+                                         n_points=8000, n_instances=6),
+                              cfg, caps, device='cpu')
+    sites = [(sparse_conv, 'rulebook_conv'), (gather_kernel, 'row_gather'),
+             (grouping, 'row_gather'), (sg, 'row_gather')]
+    with Recorder(sites) as rec:
+        entry.infer(net, batch, cfg, caps)
+    assert sparse_conv.rulebook_conv is conv_kernel.rulebook_conv
+    assert grouping.row_gather is gather_kernel.row_gather
+    cases = k1_k2_args(rec.calls, caps.voxels[0], caps.grouping_cells)
+    assert len(cases) == 10
+    feats, w, rules = cases['K1 L0 subm 32->32']
+    assert feats.shape == (16384, 32) and rules.shape == (27, 16384)
+    assert cases['K1 L5 tail 384->192'][1].shape == (27, 384, 192)
+    src, idx = cases['K2 cell labels (m+1,) int32']
+    assert src.shape == (4097,) and idx.dim() == 1
