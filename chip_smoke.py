@@ -42,9 +42,6 @@ import subprocess
 import sys
 import time
 
-# card peaks used for the bounds (NVIDIA H100 SXM data sheet, dense)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
 N_REQUESTS = 3
 TRAIN_STEPS = 3
 TRAIN_SEED0 = 200
@@ -70,18 +67,6 @@ def card_line() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
-def bound(byts: float, flops: float, dtype) -> tuple[float, str]:
-    """(least ms the card could take, what bounds it)."""
-    t_bytes = byts / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[str(dtype).split('.')[-1]]
-    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
-                                        else 'operations')
-
-
 def profile(fn, label: str, card: str) -> None:
     """Wall time, device busy time, idle share and the top 12 kernels of
     one run of ``fn`` under the profiler."""
@@ -103,6 +88,16 @@ def profile(fn, label: str, card: str) -> None:
         f'(profiler on) [{card}]')
     for ms_, count, key in rows[:12]:
         log(f'[profile]   {ms_:9.3f} ms  x{count:<5d} {key[:90]}')
+    # the conv kernels' totals, every instantiation (the slab sums apart)
+    fams = {'K1 rulebook_conv_tc<RuleSlab>': ('rulebook_conv_tc', 'RuleSlab'),
+            'K4 rulebook_conv_tc<KeyedSlab>': ('rulebook_conv_tc',
+                                               'KeyedSlab'),
+            'K5 conv_dw_tc': ('conv_dw_tc',),
+            'split slab sums (sum_partials)': ('sum_partials',)}
+    log('[profile]   by kernel: ' + ', '.join(
+        f'{name} {sum(r[0] for r in rows if all(w in r[2] for w in ws)):.3f}'
+        f' ms in {sum(r[1] for r in rows if all(w in r[2] for w in ws))}'
+        for name, ws in fams.items()))
 
 
 def main() -> int:
@@ -131,7 +126,8 @@ def main() -> int:
         from softgroup_tpu_torch.ops import join_kernel as jk
         from softgroup_tpu_torch.ops import rulebook, sparse_conv
         from softgroup_tpu_torch.time_kernels import (
-            Recorder, cuda_ms, device_ms, host_us, pick)
+            Recorder, bound, cuda_ms, device_ms, dw_bound, host_us, k4_args,
+            k5_args, nbytes, pick)
     except ImportError as e:
         print(f'chip_smoke: the port is not importable here: {e}',
               file=sys.stderr)
@@ -334,20 +330,12 @@ def main() -> int:
                    '2^-7 x max|plain|',
             bound=bound(byts, flops, feats.dtype)))
 
-    keyed_case('subm D=20 32->32', *pick(
-        keyed_calls, lambda a, k: not k['strided'] and a[4] == 20
-        and a[1].shape[1:] == (32, 32), 'keyed subm D=20'))
-    keyed_case('down D=10 32->64', *pick(
-        keyed_calls, lambda a, k: k['strided'] and a[4] == 10,
-        'keyed down D=10'))
+    for label, (a, kw) in k4_args(keyed_calls).items():
+        keyed_case(label[3:], a, kw)
 
     def dw_case(label, args, dtype):
         feats, g, rules = args
         feats, g = feats.to(dtype), g.to(dtype)
-        hits = int((rules >= 0).sum())
-        k, cin, cout = rules.shape[0], feats.shape[1], g.shape[1]
-        flops = 2.0 * hits * cin * cout
-        byts = nbytes(feats, g, rules) + k * cin * cout * 4
         cases.append(dict(
             name=f'K5 rulebook_conv_dw {label}', key='rulebook_conv_dw',
             route='cuda', source='softgroup_tpu_torch/csrc/conv.cu',
@@ -356,32 +344,16 @@ def main() -> int:
             plain=lambda: ck.rulebook_conv_dw_plain(feats, g, rules),
             library=None, tol_rel=5e-4,
             reason=('f32 sums of up to 8.5e5 exact products in another '
-                    'order (64-row MMA steps and slab sums vs one cuBLAS '
+                    'order (32-row MMA steps and slab sums vs one cuBLAS '
                     'f32 GEMM per tap): ~eps*sqrt(steps) ~ 3e-6 of a sum, '
                     'x10 for the worst entry, x10 margin: 5e-4 x '
                     'max|plain|'),
-            bound=bound(byts, flops, dtype)))
+            bound=dw_bound(feats, g, rules)))
 
-    tv0, tv1 = tcaps.voxels[0], tcaps.voxels[1]
-    l0_dw = pick(dw_calls, lambda a, k: a[2].shape == (27, tv0)
-                 and a[0].shape[1] == 32 and a[1].shape[1] == 32,
-                 'dW L0 subm 32->32')[0]
-    dw_case('L0 subm 32->32 bf16', l0_dw, torch.bfloat16)
-    dw_case('L0 subm 32->32 f32', l0_dw, torch.float32)
-    dw_case('L5 tail 384->192 bf16', pick(
-        dw_calls, lambda a, k: a[0].shape[1] == 384 and a[1].shape[1] == 192,
-        'dW 384->192')[0], torch.bfloat16)
-    dw_case('L6 subm 224->224 bf16', pick(
-        dw_calls, lambda a, k: a[0].shape[1] == 224 and a[1].shape[1] == 224,
-        'dW 224->224')[0], torch.bfloat16)
-    dw_case('L0->L1 (8, V1) 32->64 bf16', pick(
-        dw_calls, lambda a, k: a[2].shape == (8, tv1)
-        and a[0].shape[1] == 32 and a[1].shape[1] == 64, 'dW down L0')[0],
-        torch.bfloat16)
-    dw_case(f'tiny U-Net subm {tcaps.inst_voxels[0]} 32->32 bf16', pick(
-        dw_calls, lambda a, k: a[2].shape == (27, tcaps.inst_voxels[0])
-        and a[0].shape[1] == 32 and a[1].shape[1] == 32, 'dW tiny')[0],
-        torch.bfloat16)
+    for label, args in k5_args(dw_calls, tcaps).items():
+        dw_case(f'{label} bf16', args, torch.bfloat16)
+        if label.startswith('L0 subm'):
+            dw_case(f'{label} f32', args, torch.float32)
 
     def segsum_case(label, args):
         values, seg, s = args

@@ -5,9 +5,10 @@
 // K1 (sg_rulebook_conv) reads nbr from a (K, V_out) int32 rulebook; it
 // replaces softgroup_tpu/ops/conv_kernel.py:_conv_kernel (driven by
 // _windowed_conv_core).  K4 (sg_keyed_conv) resolves nbr inside the kernel by
-// binary search of the output voxel's neighbour key in the sorted input key
-// table; it replaces conv_kernel.py:_keyed_kernel (keyed_windowed_conv).
-// No (K, V) rulebook is ever written for K4.
+// search of the output voxel's neighbour key in the sorted input key table;
+// it replaces conv_kernel.py:_keyed_kernel (keyed_windowed_conv).
+// No (K, V) rulebook is ever written for K4.  K5 (sg_conv_dw) is the weight
+// gradient of K1's conv (below).
 //
 // Bound on the H100 at the backbone's shapes: the FLOPs of the taps that
 // hit (2 * hits * Cin * Cout) against the bytes of one read of feats, W,
@@ -50,16 +51,56 @@
 //   * Deep levels (few tiles): ``split`` blocks per tile cut the step list
 //     (not the tap range) into equal parts; each writes an f32 slab that
 //     sum_partials adds in slab order (deterministic, no atomics).
-// K1, f32 (the small card-vs-CPU checks only) stays on the CUDA-core FMA
-// kernel gather_gemm (no TF32).  K4 runs on gather_gemm_tc / gather_gemm:
-// per tap a block fetches its 64 neighbours, skips the tap when all miss,
-// gathers rows and W's chunk into shared memory and accumulates on wmma
-// 16x16x16 (bf16) or FMA (f32), two barriers a 32-channel chunk.  Any Cin /
-// Cout works in every kernel (ragged chunks are zero-filled).
+// K4, bf16 (the serving path's refinement U-Net): K1's kernel with another
+// prologue.  rulebook_conv_tc takes its neighbour source as a template: a
+// rulebook slab (RuleSlab, K1) or keys (KeyedSlab, K4).  K4's prologue
+// resolves the tile's whole (K, 64) slab by search of sorted keys: each
+// thread's 16 (tap, row) searches advance in lockstep, a branch-free
+// quarter cut each a round (three probes, 48 loads in flight); a subm
+// search spans only the |key offset| rows around its own row (one key
+// table on both sides), 5 rounds on the D=20 grid, 8 over a 65536-key
+// table.  The ring, tap mask and epilogue are K1's, and so is the split of
+// a tile's step list (for a smaller grid: K4's padded rows make a split's
+// slabs cost more than it gains).
+// K1 and K4, f32 (the small card-vs-CPU checks only) stay on the CUDA-core
+// FMA kernel gather_gemm (no TF32): per tap a block fetches its 64
+// neighbours, skips the tap when all miss, and accumulates the gathered
+// rows times W's chunk, two barriers a 32-channel chunk.
+//
+// K5 (sg_conv_dw), the weight gradient dW[k] = sum_v feats[rules[k, v]]^T
+// g[v], replaces conv_kernel.py:_dw_kernel (windowed_conv_dw).  Its bound is
+// the same bytes (feats, g, the rules, the f32 dW once); what held PR 2's
+// kernel far above it was K1's old shape (a dependent rule load, a block
+// vote, plain loads and two barriers around every 64-row chunk), g read
+// once per tap, and, on ragged channel tiles (96, 160, 224, the 6-channel
+// input), loads of one element at a time.  bf16 (conv_dw_tc):
+//   * a block owns a (BI x BJ) tile of (Cin, Cout) (32 or 64 each), a group
+//     of G taps (3; 1 for a rulebook of few steps, the deep levels, whose
+//     one-tap blocks run four to an SM) and every split-th step of 32
+//     rulebook rows (dealt round-robin: a capacity's padded tail, which
+//     misses every tap, is spread over all blocks), each block writing an
+//     f32 slab that sum_partials adds in slab order (deterministic, no
+//     atomics);
+//   * a ring by cp.async, 16 bytes a copy (the wrapper pads rows to 8
+//     channels): the rule rows of step s + 4 (5 small stages), the gathered
+//     feats rows of each tap and the g rows of step s + 2 (3 stages), step
+//     s in the MMAs; one wait and one barrier a step.  g rows are read once
+//     for the G taps, and not at all where every tap of the group misses;
+//     rows that miss and ragged channels are zeroed by stores, once a slot;
+//   * mma.sync m16n8k16 of A^T B (A: the gathered rows, read transposed by
+//     ldmatrix.trans; B: the g rows): four warps, each a quarter of the
+//     tile, G f32 accumulators a thread in registers; a warp vote skips a
+//     tap's MMAs on a 16-row piece with no hit.
+//   The MMAs still run on 16-row pieces of which ~3/4 of the rows miss:
+//   they are the largest part of the step.  Packing each tap's hits into
+//   dense pieces (A and g rows gathered together) ran slower: it gives up
+//   g's reuse across the group and adds a per-row placement.
+// f32 (conv_dw_fma, the small checks only): one tap a block, 64-row chunks,
+// CUDA-core FMA.  Any Cin / Cout works in every kernel (ragged channels are
+// zero-filled).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include <climits>
 #include <cstdint>
@@ -191,113 +232,6 @@ gather_gemm(const float* __restrict__ feats, const float* __restrict__ w,
   }
 }
 
-// bf16 variant on the tensor cores: the same tiling and tap skip, but the
-// gathered rows and W's chunk stay bf16 in shared memory (16-byte vector
-// copies where the widths allow) and four warps each accumulate a 16-row
-// strip of the tile with wmma 16x16x16 bf16 -> f32 (mma.sync).
-constexpr int TC_NT = 128;
-constexpr int TC_PAD = 8;  // bf16 elements of row padding (keeps 32 B
-                           // alignment of every fragment pointer)
-
-template <int BN, typename Taps>
-__global__ void __launch_bounds__(TC_NT)
-gather_gemm_tc(const __nv_bfloat16* __restrict__ feats,
-               const __nv_bfloat16* __restrict__ w, Taps taps, int n_taps,
-               int kt, int v_out, int cin, int cout,
-               __nv_bfloat16* __restrict__ out, float* __restrict__ partial) {
-  using namespace nvcuda;
-  constexpr int NF = BN / 16;
-  __shared__ int rule_s[BM];
-  __shared__ __align__(32) __nv_bfloat16 a_s[BM][BK + TC_PAD];
-  __shared__ __align__(32) __nv_bfloat16 b_s[BK][BN + TC_PAD];
-  __shared__ __align__(32) float c_s[BM][BN + 4];
-  const int tid = threadIdx.x, warp = tid / 32;
-  const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
-  const bool vec_a = (cin % 8) == 0, vec_b = (cout % 8) == 0;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
-#pragma unroll
-  for (int j = 0; j < NF; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  const int k_end = min(n_taps, (int)(blockIdx.z + 1) * kt);
-  for (int k = blockIdx.z * kt; k < k_end; ++k) {
-    int hit = 0;
-    if (tid < BM) {
-      const int v = row0 + tid;
-      const int r = v < v_out ? taps(k, v) : -1;
-      rule_s[tid] = r;
-      hit = r >= 0;
-    }
-    if (!__syncthreads_or(hit)) continue;  // block-uniform
-    for (int c0 = 0; c0 < cin; c0 += BK) {
-      if (vec_a && c0 + BK <= cin) {
-        for (int i = tid; i < BM * (BK / 8); i += TC_NT) {
-          const int r = i / (BK / 8), c = (i % (BK / 8)) * 8;
-          const int src = rule_s[r];
-          uint4 val = make_uint4(0, 0, 0, 0);
-          if (src >= 0)
-            val = *reinterpret_cast<const uint4*>(
-                feats + (size_t)src * cin + c0 + c);
-          *reinterpret_cast<uint4*>(&a_s[r][c]) = val;
-        }
-      } else {
-        for (int i = tid; i < BM * BK; i += TC_NT) {
-          const int r = i / BK, c = i % BK;
-          const int src = rule_s[r];
-          a_s[r][c] = (src >= 0 && c0 + c < cin)
-                          ? feats[(size_t)src * cin + c0 + c] : zero;
-        }
-      }
-      if (vec_b && col0 + BN <= cout) {
-        for (int i = tid; i < BK * (BN / 8); i += TC_NT) {
-          const int c = i / (BN / 8), n = (i % (BN / 8)) * 8;
-          uint4 val = make_uint4(0, 0, 0, 0);
-          if (c0 + c < cin)
-            val = *reinterpret_cast<const uint4*>(
-                w + ((size_t)k * cin + c0 + c) * cout + col0 + n);
-          *reinterpret_cast<uint4*>(&b_s[c][n]) = val;
-        }
-      } else {
-        for (int i = tid; i < BK * BN; i += TC_NT) {
-          const int c = i / BN, n = i % BN;
-          b_s[c][n] = (c0 + c < cin && col0 + n < cout)
-                          ? w[((size_t)k * cin + c0 + c) * cout + col0 + n]
-                          : zero;
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, &a_s[warp * 16][kk], BK + TC_PAD);
-#pragma unroll
-        for (int j = 0; j < NF; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, &b_s[kk][j * 16], BN + TC_PAD);
-          wmma::mma_sync(acc[j], fa, fb, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < NF; ++j)
-    wmma::store_matrix_sync(&c_s[warp * 16][j * 16], acc[j], BN + 4,
-                            wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < BM * BN; i += TC_NT) {
-    const int r = i / BN, n = i % BN;
-    const int row = row0 + r, col = col0 + n;
-    if (row >= v_out || col >= cout) continue;
-    if (partial)
-      partial[((size_t)blockIdx.z * v_out + row) * cout + col] = c_s[r][n];
-    else
-      out[(size_t)row * cout + col] = __float2bfloat16_rn(c_s[r][n]);
-  }
-}
-
 // out = sum over the split's f32 partial slabs, in slab order
 template <typename T>
 __global__ void sum_partials(const float* __restrict__ partial, int split,
@@ -313,46 +247,35 @@ __global__ void sum_partials(const float* __restrict__ partial, int split,
   }
 }
 
-// split > 1 spreads the taps over split blocks per tile (grid.z), each
-// writing an f32 partial slab of ``partial`` (split, v_out, cout) that a
-// second kernel sums: the deep levels otherwise launch too few blocks to
-// fill the card.  split == 1 writes ``out`` directly.
-template <typename T, typename Taps>
-int launch(const void* feats, const void* w, Taps taps, int n_taps,
-           int v_out, int cin, int cout, void* out, int split,
-           float* partial, cudaStream_t stream) {
+// the f32 kernel (K1 and K4): split > 1 spreads the taps over split blocks
+// per tile (grid.z), each writing an f32 partial slab of ``partial``
+// (split, v_out, cout) that a second kernel sums: the deep levels otherwise
+// launch too few blocks to fill the card.  split == 1 writes ``out``.
+template <typename Taps>
+int launch_fma(const void* feats, const void* w, Taps taps, int n_taps,
+               int v_out, int cin, int cout, void* out, int split,
+               float* partial, cudaStream_t stream) {
   if (v_out <= 0 || cout <= 0) return (int)cudaGetLastError();
   if (split < 1 || split > n_taps || (split > 1 && !partial))
     return (int)cudaErrorInvalidValue;
   const int kt = (n_taps + split - 1) / split;
-  const dim3 g32((v_out + BM - 1) / BM, (cout + 31) / 32, split);
-  const dim3 g64((v_out + BM - 1) / BM, (cout + 63) / 64, split);
-  const T* f = (const T*)feats;
-  const T* wt = (const T*)w;
-  float* part = split > 1 ? partial : nullptr;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    T* o = (T*)out;
-    if (cout <= 32)
-      gather_gemm_tc<32, Taps><<<g32, TC_NT, 0, stream>>>(
-          f, wt, taps, n_taps, kt, v_out, cin, cout, o, part);
-    else
-      gather_gemm_tc<64, Taps><<<g64, TC_NT, 0, stream>>>(
-          f, wt, taps, n_taps, kt, v_out, cin, cout, o, part);
-  } else {
-    float* o = part ? part : (float*)out;
-    if (cout <= 32)
-      gather_gemm<32, Taps><<<g32, NT, 0, stream>>>(
-          f, wt, taps, n_taps, kt, v_out, cin, cout, o);
-    else
-      gather_gemm<64, Taps><<<g64, NT, 0, stream>>>(
-          f, wt, taps, n_taps, kt, v_out, cin, cout, o);
-  }
-  if (part) {
+  const float* f = (const float*)feats;
+  const float* wt = (const float*)w;
+  float* o = split > 1 ? partial : (float*)out;
+  if (cout <= 32)
+    gather_gemm<32, Taps>
+        <<<dim3((v_out + BM - 1) / BM, (cout + 31) / 32, split), NT, 0,
+            stream>>>(f, wt, taps, n_taps, kt, v_out, cin, cout, o);
+  else
+    gather_gemm<64, Taps>
+        <<<dim3((v_out + BM - 1) / BM, (cout + 63) / 64, split), NT, 0,
+            stream>>>(f, wt, taps, n_taps, kt, v_out, cin, cout, o);
+  if (split > 1) {
     const long long n = (long long)v_out * cout;
     long long blocks = (n + 255) / 256;
     if (blocks > 132 * 8) blocks = 132 * 8;
-    sum_partials<T><<<(unsigned)blocks, 256, 0, stream>>>(part, split, n,
-                                                          (T*)out);
+    sum_partials<float><<<(unsigned)blocks, 256, 0, stream>>>(
+        partial, split, n, (float*)out);
   }
   return (int)cudaGetLastError();
 }
@@ -441,16 +364,133 @@ __device__ __forceinline__ int pick(const int (&x)[N], int i) {
   return v;
 }
 
-// feats (V_in, cin), w (K, cin, cout), rules (K, ld) int32 -> out
-// (v_out, cout) bf16, or with gridDim.z > 1 the f32 slab z of partial
-// (split, v_out, cout).  Grid (tiles of BM rows, tiles of BN columns, split).
-// The K dimension of the tile's product is the hit taps' channels, cut in
-// pieces (one tap, PW channels); a step takes P = K1_BK / PW pieces.
-template <int BN, int PW>
+// K1's neighbour source: the (K, ld) int32 rulebook.  ``fill`` gives a
+// thread its slots of the tile's rule slab: rv[q][h] = rule of tap
+// warp + 4q, row row0 + lane + 32h (-1 past the taps or the rows).
+struct RuleSlab {
+  const int* rules;
+  int ld;  // row stride of the rulebook (>= v_out)
+  template <int TPW, int RPL>
+  __device__ __forceinline__ void fill(int (&rv)[TPW][RPL], int warp,
+                                       int lane, int row0, int n_taps,
+                                       int v_out) const {
+#pragma unroll
+    for (int q = 0; q < TPW; ++q)
+#pragma unroll
+      for (int h = 0; h < RPL; ++h) {
+        const int k = warp + q * (K1_NT / 32), r = lane + 32 * h;
+        rv[q][h] = k < n_taps && row0 + r < v_out
+                       ? __ldg(rules + (size_t)k * ld + row0 + r) : -1;
+      }
+  }
+};
+
+// K4's neighbour source: sorted int32 keys ((b*D + x)*D + y)*D + z on the
+// proposal grid (INT_MAX padded; a negative key is no voxel), the slab
+// resolved by search (the rules of rules_from_keys in conv_kernel.py).  A
+// thread's 16 searches advance in lockstep, each round a branch-free
+// quarter cut of every search's range (three probes, all of the round's
+// loads in flight together): 8 rounds over 65536 keys.  Subm (out_keys is
+// in_keys, ``same``): the neighbour of row v at key offset delta lies
+// within |delta| rows of v (the keys are sorted and unique), so a search
+// spans |delta| rows (<= D^2 + D + 1), not the table.
+struct KeyedSlab {
+  const int* out_keys;
+  const int* in_keys;
+  int v_in, d, strided, same;
+  template <int TPW, int RPL>
+  __device__ __forceinline__ void fill(int (&rv)[TPW][RPL], int warp,
+                                       int lane, int row0, int n_taps,
+                                       int v_out) const {
+    // key < 0: no search (the slot misses); base / len: the search's rows
+    int base[TPW][RPL], len[TPW][RPL], key[TPW][RPL], own[RPL];
+#pragma unroll
+    for (int h = 0; h < RPL; ++h) {
+      const int v = row0 + lane + 32 * h;
+      own[h] = v < v_out ? __ldg(out_keys + v) : -1;
+    }
+    int most = 1;  // the longest search of this thread
+#pragma unroll
+    for (int q = 0; q < TPW; ++q)
+#pragma unroll
+      for (int h = 0; h < RPL; ++h) {
+        const int k = warp + q * (K1_NT / 32), v = row0 + lane + 32 * h;
+        base[q][h] = 0;
+        len[q][h] = 1;
+        key[q][h] = -1;
+        const int kv = own[h];
+        if (k >= n_taps || kv < 0 || kv == INT_MAX || v_in <= 0) continue;
+        const int z = kv % d, y = (kv / d) % d, x = (kv / (d * d)) % d;
+        const int b = kv / (d * d * d);
+        int qk;
+        if (strided) {  // coarse output, fine children 2*coord + (dx, dy, dz)
+          const int dx = k >> 2, dy = (k >> 1) & 1, dz = k & 1, df = 2 * d;
+          qk = ((b * df + 2 * x + dx) * df + 2 * y + dy) * df + 2 * z + dz;
+        } else {  // tap index (dx+1)*9 + (dy+1)*3 + (dz+1)
+          const int dx = k / 9 - 1, dy = (k / 3) % 3 - 1, dz = k % 3 - 1;
+          if (x + dx < 0 || x + dx >= d || y + dy < 0 || y + dy >= d ||
+              z + dz < 0 || z + dz >= d)
+            continue;
+          qk = kv + (dx * d + dy) * d + dz;
+        }
+        int lo = 0, hi = v_in - 1;  // the search's rows, inclusive
+        if (same && !strided) {
+          const int delta = qk - kv;
+          lo = delta > 0 ? v + 1 : max(v + delta, 0);
+          hi = delta > 0 ? min(v + delta, v_in - 1) : delta < 0 ? v - 1 : v;
+          if (hi < lo) continue;
+        }
+        base[q][h] = lo;
+        len[q][h] = hi - lo + 1;
+        key[q][h] = qk;
+        most = max(most, len[q][h]);
+      }
+    // lower bound of the key in its rows: it stays in [base, base + len];
+    // a round probes the quarter points and keeps the quarter that holds
+    // it.  A slot whose len reached 1 (or that has no search) probes its
+    // base, harmlessly.
+    for (int n = most; n > 1; n = (n + 3) >> 2) {
+#pragma unroll
+      for (int q = 0; q < TPW; ++q) {
+        if (warp + q * (K1_NT / 32) >= n_taps) break;  // warp-uniform
+#pragma unroll
+        for (int h = 0; h < RPL; ++h) {
+          const int l = len[q][h], q1 = l >> 2, q2 = l >> 1;
+          const int q3 = l - ((l + 3) >> 2);
+          const int* a = in_keys + base[q][h];
+          const bool c1 = __ldg(a + q1) < key[q][h];
+          const bool c2 = __ldg(a + q2) < key[q][h];
+          const bool c3 = __ldg(a + q3) < key[q][h];
+          base[q][h] += c3 ? q3 : c2 ? q2 : c1 ? q1 : 0;
+          len[q][h] = c3 ? l - q3 : c2 ? q3 - q2 : c1 ? q2 - q1 : q1;
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < TPW; ++q)
+#pragma unroll
+      for (int h = 0; h < RPL; ++h) {
+        rv[q][h] = -1;
+        if (warp + q * (K1_NT / 32) >= n_taps || key[q][h] < 0) continue;
+        // the lower bound is base or base + 1; the keys are unique, so a
+        // match there is the neighbour
+        int p = base[q][h];
+        p += __ldg(in_keys + p) < key[q][h];
+        if (p < v_in && __ldg(in_keys + p) == key[q][h]) rv[q][h] = p;
+      }
+  }
+};
+
+// feats (V_in, cin), w (K, cin, cout) and the neighbour source (a rulebook
+// or keys) -> out (v_out, cout) bf16, or with gridDim.z > 1 the f32 slab z
+// of partial (split, v_out, cout).  Grid (tiles of BM rows, tiles of BN
+// columns, split).  The K dimension of the tile's product is the hit taps'
+// channels, cut in pieces (one tap, PW channels); a step takes P = K1_BK /
+// PW pieces.
+template <int BN, int PW, typename Src>
 __global__ void __launch_bounds__(K1_NT)
 rulebook_conv_tc(const __nv_bfloat16* __restrict__ feats,
-                 const __nv_bfloat16* __restrict__ w,
-                 const int* __restrict__ rules, int ld, int n_taps,
+                 const __nv_bfloat16* __restrict__ w, Src src, int n_taps,
                  int v_out, int cin, int cout, int amode, int bmode,
                  __nv_bfloat16* __restrict__ out, float* __restrict__ partial) {
   using L = K1Smem<BN>;
@@ -465,18 +505,11 @@ rulebook_conv_tc(const __nv_bfloat16* __restrict__ feats,
   const int row0 = blockIdx.x * BM, col0 = blockIdx.y * BN;
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
 
-  // prologue: the tile's rule slab (warp w reads taps w, w + 4, ...: all
+  // prologue: the tile's rule slab (warp w holds taps w, w + 4, ...: all
   // its loads in flight at once), and which taps hit any of its rows
   constexpr int TPW = K1_MAX_TAPS / NW, RPL = BM / 32;
   int rv[TPW][RPL];
-#pragma unroll
-  for (int q = 0; q < TPW; ++q)
-#pragma unroll
-    for (int h = 0; h < RPL; ++h) {
-      const int k = warp + q * NW, r = lane + 32 * h;
-      rv[q][h] = k < n_taps && row0 + r < v_out
-                     ? __ldg(rules + (size_t)k * ld + row0 + r) : -1;
-    }
+  src.fill(rv, warp, lane, row0, n_taps, v_out);
 #pragma unroll
   for (int q = 0; q < TPW; ++q) {
     const int k = warp + q * NW;
@@ -716,50 +749,50 @@ rulebook_conv_tc(const __nv_bfloat16* __restrict__ feats,
   }
 }
 
-template <int BN, int PW>
-int launch_k1_tile(const void* feats, const void* w, const int* rules,
-                   int ld, int n_taps, int v_out, int cin, int cout,
-                   int split, void* out, float* part, cudaStream_t stream) {
+template <int BN, int PW, typename Src>
+int launch_k1_tile(const void* feats, const void* w, Src src, int n_taps,
+                   int v_out, int cin, int cout, int split, void* out,
+                   float* part, cudaStream_t stream) {
   constexpr int bytes = K1Smem<BN>::BYTES;
   const cudaError_t e = cudaFuncSetAttribute(
-      rulebook_conv_tc<BN, PW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bytes);
+      rulebook_conv_tc<BN, PW, Src>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((v_out + BM - 1) / BM, (cout + BN - 1) / BN, split);
-  rulebook_conv_tc<BN, PW><<<grid, K1_NT, bytes, stream>>>(
-      (const __nv_bfloat16*)feats, (const __nv_bfloat16*)w, rules, ld,
-      n_taps, v_out, cin, cout, copy_mode(feats, cin), copy_mode(w, cout),
+  rulebook_conv_tc<BN, PW, Src><<<grid, K1_NT, bytes, stream>>>(
+      (const __nv_bfloat16*)feats, (const __nv_bfloat16*)w, src, n_taps,
+      v_out, cin, cout, copy_mode(feats, cin), copy_mode(w, cout),
       (__nv_bfloat16*)out, part);
   return (int)cudaSuccess;
 }
 
 // pieces of 16 channels when Cin <= 16 (the input conv: two taps a step),
 // else 32
-template <int BN>
-int launch_k1_cols(const void* feats, const void* w, const int* rules,
-                   int ld, int n_taps, int v_out, int cin, int cout,
-                   int split, void* out, float* part, cudaStream_t stream) {
+template <int BN, typename Src>
+int launch_k1_cols(const void* feats, const void* w, Src src, int n_taps,
+                   int v_out, int cin, int cout, int split, void* out,
+                   float* part, cudaStream_t stream) {
   if (cin <= 16)
-    return launch_k1_tile<BN, 16>(feats, w, rules, ld, n_taps, v_out, cin,
-                                  cout, split, out, part, stream);
-  return launch_k1_tile<BN, 32>(feats, w, rules, ld, n_taps, v_out, cin,
-                                cout, split, out, part, stream);
+    return launch_k1_tile<BN, 16>(feats, w, src, n_taps, v_out, cin, cout,
+                                  split, out, part, stream);
+  return launch_k1_tile<BN, 32>(feats, w, src, n_taps, v_out, cin, cout,
+                                split, out, part, stream);
 }
 
-int launch_k1_bf16(const void* feats, const void* w, const int* rules,
-                   int ld, int n_taps, int v_out, int cin, int cout,
-                   void* out, int split, float* partial,
-                   cudaStream_t stream) {
+template <typename Src>
+int launch_k1_bf16(const void* feats, const void* w, Src src, int n_taps,
+                   int v_out, int cin, int cout, void* out, int split,
+                   float* partial, cudaStream_t stream) {
   if (v_out <= 0 || cout <= 0) return (int)cudaGetLastError();
-  if (n_taps < 1 || n_taps > K1_MAX_TAPS || ld < v_out || split < 1 ||
-      split > 65535 || (split > 1 && !partial))
+  if (n_taps < 1 || n_taps > K1_MAX_TAPS || split < 1 || split > 65535 ||
+      (split > 1 && !partial))
     return (int)cudaErrorInvalidValue;
   float* part = split > 1 ? partial : nullptr;
   const int rc =
-      cout <= 32 ? launch_k1_cols<32>(feats, w, rules, ld, n_taps, v_out,
-                                      cin, cout, split, out, part, stream)
-                 : launch_k1_cols<64>(feats, w, rules, ld, n_taps, v_out,
-                                      cin, cout, split, out, part, stream);
+      cout <= 32 ? launch_k1_cols<32>(feats, w, src, n_taps, v_out, cin,
+                                      cout, split, out, part, stream)
+                 : launch_k1_cols<64>(feats, w, src, n_taps, v_out, cin,
+                                      cout, split, out, part, stream);
   if (rc != (int)cudaSuccess) return rc;
   if (part) {
     const long long n = (long long)v_out * cout;
@@ -772,141 +805,256 @@ int launch_k1_bf16(const void* feats, const void* w, const int* rules,
 }
 
 // ---------------------------------------------------------------------------
-// K5: weight gradient of the rulebook conv (sg_conv_dw)
+// K5: weight gradient of the rulebook conv (sg_conv_dw); design note at the
+// top of the file.
 //
 //   dW[k, i, j] = sum_v feats[rules[k, v], i] * g[v, j]      (-1 adds 0)
-//
-// Replaces softgroup_tpu/ops/conv_kernel.py:_dw_kernel (driven by
-// windowed_conv_dw, dispatched by sparse_conv._dw).  The TPU kernel carried
-// the (K, Cin, Cout) sum across its sequential grid in VMEM; Hopper's blocks
-// run in no order, so the V reduction is cut into ``split`` contiguous
-// ranges of 64-row chunks: block (tile, k, z) walks its range of
-// rules[k], skips every chunk whose 64 rules are all -1 (most taps of a
-// surface scan, the whole padded tail), gathers the hit feats rows and the
-// matching g rows into shared memory and accumulates its (BI x BJ) tile of
-// dW[k] in f32.  bf16: the 64 rows are the K dimension of wmma 16x16x16
-// (mma.sync) products A^T B; f32: CUDA-core FMA (no TF32).  Each z writes
-// an f32 partial slab that sum_partials adds in slab order, so the result
-// is deterministic (no atomics).
-//
-// Bound on the H100: bytes (one read of feats, g and the rules, one write of
-// dW); at 32 channels the FLOPs of the hit rows are far below the tensor
-// cores' rate.  What holds the kernel above it is the chunk loop's
-// latency: rules, then gathers, then the MMA, with block barriers between.
-constexpr int DW_BV = 64;  // rulebook rows per chunk
+constexpr int DW_NT = 128;     // 4 warps, 2 x 2 over the (BI, BJ) tile
+// blocks an SM the registers must allow: one-tap blocks are small, and
+// deep levels (few steps) run them four to an SM
+constexpr int dw_min_blocks(int g) { return g == 1 ? 4 : 1; }
+constexpr int DW_STAGES = 3;   // ring of gathered rows: copies S - 1 ahead
+constexpr int DW_RSTAGES = 2 * DW_STAGES - 1;  // rule rows: 2S - 2 ahead
+constexpr int DW_BV = 32;      // rulebook rows a step (the products' K)
+constexpr int DW_PAD = 8;      // bf16 of row padding (conflict-free ldmatrix)
+static_assert(DW_BV % 32 == 0, "a step is whole warps of rows");
 
-template <int BI, int BJ>
-__global__ void __launch_bounds__(TC_NT)
-conv_dw_tc(const __nv_bfloat16* __restrict__ feats,
-           const __nv_bfloat16* __restrict__ g, const int* __restrict__ rules,
-           int n_taps, int v_out, int cin, int cout, int cpb, int n_chunks,
-           float* __restrict__ out) {
-  using namespace nvcuda;
-  constexpr int NFJ = BJ / 16;
-  constexpr int NFW = (BI / 16) * NFJ / 4;  // fragments per warp
-  __shared__ int rule_s[DW_BV];
-  __shared__ __align__(32) __nv_bfloat16 a_s[DW_BV][BI + TC_PAD];
-  __shared__ __align__(32) __nv_bfloat16 b_s[DW_BV][BJ + TC_PAD];
-  __shared__ __align__(32) float c_s[BI][BJ + 4];
-  const int tid = threadIdx.x, warp = tid / 32;
+// the layout of a K5 block's dynamic shared memory, in bytes
+template <int BI, int BJ, int G>
+struct DwSmem {
+  static constexpr int A_LD = BI + DW_PAD, B_LD = BJ + DW_PAD;
+  static constexpr int A = DW_STAGES * G * DW_BV * A_LD * 2;  // feats rows
+  static constexpr int B = DW_STAGES * DW_BV * B_LD * 2;      // g rows
+  static constexpr int R = DW_RSTAGES * G * DW_BV * 4;        // rule rows
+  static constexpr int BYTES = A + B + R;
+};
+
+// feats (V_in, lda), g (v_out, ldb) bf16 (16-byte aligned, lda and ldb
+// multiples of 8, the channels past cin / cout zero), rules (K, v_out)
+// int32 -> the f32 (K, cin, cout) slab blockIdx.z of out.  Grid (tiles of
+// BI x BJ of (cin, cout), groups of G taps, split): block z walks steps z,
+// z + split, z + 2 split, ... of DW_BV rows, so that the blocks share the
+// rows that hit evenly (a capacity's padded tail misses every tap).  rmode:
+// 16- or 4-byte copies of the rule rows.
+template <int BI, int BJ, int G>
+__global__ void __launch_bounds__(DW_NT, dw_min_blocks(G))
+conv_dw_tc(const __nv_bfloat16* __restrict__ feats, int lda,
+           const __nv_bfloat16* __restrict__ g, int ldb,
+           const int* __restrict__ rules, int n_taps, int v_out, int cin,
+           int cout, int rmode, float* __restrict__ out) {
+  using L = DwSmem<BI, BJ, G>;
+  constexpr int WI = BI / 2, WJ = BJ / 2;  // a warp's part of the tile
+  constexpr int MI = WI / 16, NJ = WJ / 8;
+  constexpr int ASL = G * DW_BV * (BI / 8) / DW_NT;  // 16-byte A slots
+  constexpr int BSL = DW_BV * (BJ / 8) / DW_NT;      // and B slots a thread
+  // one bit a slot of every stage, where 64 bits hold them
+  constexpr bool TRACK = DW_STAGES * (ASL + BSL) <= 64;
+  constexpr int HALVES = DW_BV / 16;  // 16-row pieces of a step
+  extern __shared__ __align__(128) unsigned char dw_smem[];
+  auto a_s = reinterpret_cast<__nv_bfloat16(*)[G][DW_BV][L::A_LD]>(dw_smem);
+  auto b_s =
+      reinterpret_cast<__nv_bfloat16(*)[DW_BV][L::B_LD]>(dw_smem + L::A);
+  auto rule_s = reinterpret_cast<int(*)[G][DW_BV]>(dw_smem + L::A + L::B);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int n_tj = (cout + BJ - 1) / BJ;
   const int i0 = (blockIdx.x / n_tj) * BI, j0 = (blockIdx.x % n_tj) * BJ;
-  const int k = blockIdx.y;
-  const int* rk = rules + (size_t)k * v_out;
-  const bool vec_a = (cin % 8) == 0 && i0 + BI <= cin;
-  const bool vec_b = (cout % 8) == 0 && j0 + BJ <= cout;
-  const __nv_bfloat16 zero = __float2bfloat16_rn(0.f);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NFW];
-#pragma unroll
-  for (int q = 0; q < NFW; ++q) wmma::fill_fragment(acc[q], 0.f);
+  const int k0 = blockIdx.y * G;
+  const int split = gridDim.z;
+  const int n =
+      ((v_out + DW_BV - 1) / DW_BV - (int)blockIdx.z + split - 1) / split;
 
-  const int ch_end = min(n_chunks, (int)(blockIdx.z + 1) * cpb);
-  for (int ch = blockIdx.z * cpb; ch < ch_end; ++ch) {
-    const int v0 = ch * DW_BV;
-    int hit = 0;
-    if (tid < DW_BV) {
-      const int r = v0 + tid < v_out ? rk[v0 + tid] : -1;
-      rule_s[tid] = r;
-      hit = r >= 0;
-    }
-    if (!__syncthreads_or(hit)) continue;  // block-uniform
-    if (vec_a) {
-      for (int t = tid; t < DW_BV * (BI / 8); t += TC_NT) {
-        const int r = t / (BI / 8), c = (t % (BI / 8)) * 8;
-        const int src = rule_s[r];
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (src >= 0)
-          val = *reinterpret_cast<const uint4*>(feats + (size_t)src * cin +
-                                                i0 + c);
-        *reinterpret_cast<uint4*>(&a_s[r][c]) = val;
+  // rules of step i into its rule stage (-1 past the taps or the rows)
+  auto issue_rules = [&](int i) {
+    if (i >= n) return;
+    const int v0 = (blockIdx.z + i * split) * DW_BV;
+    int(*rs)[DW_BV] = rule_s[i % DW_RSTAGES];
+    if (rmode == 16 && v0 + DW_BV <= v_out) {
+      for (int p = tid; p < G * (DW_BV / 4); p += DW_NT) {
+        const int t = p / (DW_BV / 4), c = (p % (DW_BV / 4)) * 4;
+        if (k0 + t < n_taps)
+          cp_async16(&rs[t][c], rules + (size_t)(k0 + t) * v_out + v0 + c);
+        else
+          *reinterpret_cast<int4*>(&rs[t][c]) = make_int4(-1, -1, -1, -1);
       }
     } else {
-      for (int t = tid; t < DW_BV * BI; t += TC_NT) {
-        const int r = t / BI, c = t % BI;
-        const int src = rule_s[r];
-        a_s[r][c] = (src >= 0 && i0 + c < cin)
-                        ? feats[(size_t)src * cin + i0 + c] : zero;
+      for (int p = tid; p < G * DW_BV; p += DW_NT) {
+        const int t = p / DW_BV, r = p % DW_BV;
+        if (k0 + t < n_taps && v0 + r < v_out)
+          cp_async4(&rs[t][r], rules + (size_t)(k0 + t) * v_out + v0 + r);
+        else
+          rs[t][r] = -1;
       }
     }
-    if (vec_b) {
-      for (int t = tid; t < DW_BV * (BJ / 8); t += TC_NT) {
-        const int r = t / (BJ / 8), c = (t % (BJ / 8)) * 8;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (rule_s[r] >= 0)
-          val = *reinterpret_cast<const uint4*>(g + (size_t)(v0 + r) * cout +
-                                                j0 + c);
-        *reinterpret_cast<uint4*>(&b_s[r][c]) = val;
-      }
-    } else {
-      for (int t = tid; t < DW_BV * BJ; t += TC_NT) {
-        const int r = t / BJ, c = t % BJ;
-        b_s[r][c] = (rule_s[r] >= 0 && j0 + c < cout)
-                        ? g[(size_t)(v0 + r) * cout + j0 + c] : zero;
-      }
-    }
-    __syncthreads();
+  };
+
+  // bit stage * ASL + it (A) or DW_STAGES * ASL + stage * BSL + it (B):
+  // this thread's 16-byte slot holds zeros, so a row that misses again is
+  // not zeroed again
+  unsigned long long zeroed = 0;
+  // the gathered feats rows of each tap and the g rows of step i (its rules
+  // landed), 16 bytes a copy: rows that miss, or that miss every tap of the
+  // group (g), and channels past the row are zeroed by stores
+  auto issue_rows = [&](int i) {
+    if (i >= n) return;
+    const int v0 = (blockIdx.z + i * split) * DW_BV, st = i % DW_STAGES;
+    const int(*rs)[DW_BV] = rule_s[i % DW_RSTAGES];
+    constexpr int V = BI / 8;
 #pragma unroll
-    for (int kk = 0; kk < DW_BV; kk += 16) {
-#pragma unroll
-      for (int q = 0; q < NFW; ++q) {
-        const int f = warp * NFW + q, fi = f / NFJ, fj = f % NFJ;
-        // A^T: element (i, v) of the product's left operand is a_s[v][i]
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> fa;
-        wmma::load_matrix_sync(fa, &a_s[kk][fi * 16], BI + TC_PAD);
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, &b_s[kk][fj * 16], BJ + TC_PAD);
-        wmma::mma_sync(acc[q], fa, fb, acc[q]);
+    for (int it = 0; it < ASL; ++it) {
+      const int q = tid + it * DW_NT;
+      const int t = q / (DW_BV * V), r = (q / V) % DW_BV, c = (q % V) * 8;
+      const int src = rs[t][r];
+      const unsigned long long bit = TRACK ? 1ull << (st * ASL + it) : 0ull;
+      if (src >= 0 && i0 + c < lda) {
+        cp_async16(&a_s[st][t][r][c], feats + (size_t)src * lda + i0 + c);
+        zeroed &= ~bit;
+      } else if (!(zeroed & bit) || !TRACK) {
+        *reinterpret_cast<uint4*>(&a_s[st][t][r][c]) = uint4{0, 0, 0, 0};
+        zeroed |= bit;
       }
     }
-    __syncthreads();
-  }
+    constexpr int W = BJ / 8;
 #pragma unroll
-  for (int q = 0; q < NFW; ++q) {
-    const int f = warp * NFW + q, fi = f / NFJ, fj = f % NFJ;
-    wmma::store_matrix_sync(&c_s[fi * 16][fj * 16], acc[q], BJ + 4,
-                            wmma::mem_row_major);
-  }
+    for (int it = 0; it < BSL; ++it) {
+      const int q = tid + it * DW_NT, r = q / W, c = (q % W) * 8;
+      const unsigned long long bit =
+          TRACK ? 1ull << (DW_STAGES * ASL + st * BSL + it) : 0ull;
+      int hit = 0;
+#pragma unroll
+      for (int t = 0; t < G; ++t) hit |= rs[t][r] >= 0;
+      if (hit && j0 + c < ldb) {
+        cp_async16(&b_s[st][r][c], g + (size_t)(v0 + r) * ldb + j0 + c);
+        zeroed &= ~bit;
+      } else if (!(zeroed & bit) || !TRACK) {
+        *reinterpret_cast<uint4*>(&b_s[st][r][c]) = uint4{0, 0, 0, 0};
+        zeroed |= bit;
+      }
+    }
+  };
+
+  float acc[G][MI][NJ][4];
+#pragma unroll
+  for (int t = 0; t < G; ++t)
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[t][mi][j][e] = 0.f;
+
+  // one commit group a step: rules of step i + 2S - 2 and rows of step
+  // i + S - 1 (S = DW_STAGES); at step i, the group of step i - S + 1 (rows
+  // of i, rules of i + S - 1) and every group before it landed
+#pragma unroll
+  for (int j = 0; j < DW_STAGES - 1; ++j) issue_rules(j);
+  cp_async_commit();
+  cp_async_wait<0>();
   __syncthreads();
-  float* slab = out + ((size_t)blockIdx.z * n_taps + k) * cin * cout;
-  for (int t = tid; t < BI * BJ; t += TC_NT) {
-    const int i = t / BJ, j = t % BJ;
-    if (i0 + i < cin && j0 + j < cout)
-      slab[(size_t)(i0 + i) * cout + j0 + j] = c_s[i][j];
+#pragma unroll
+  for (int j = 0; j < DW_STAGES - 1; ++j) {
+    issue_rules(j + DW_STAGES - 1);
+    issue_rows(j);
+    cp_async_commit();
+  }
+  const int wi0 = (warp >> 1) * WI, wj0 = (warp & 1) * WJ;
+  const int r16 = lane & 15, c8 = (lane >> 4) * 8;
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<DW_STAGES - 2>();
+    __syncthreads();  // everyone's copies landed; everyone is done with i - 1
+    const int st = i % DW_STAGES;
+    const int(*rs)[DW_BV] = rule_s[i % DW_RSTAGES];
+    // which 16-row pieces of the step each tap hits (warp votes)
+    unsigned hit[G], any = 0;
+#pragma unroll
+    for (int t = 0; t < G; ++t) {
+      hit[t] = 0;
+#pragma unroll
+      for (int c = 0; c < DW_BV / 32; ++c) {
+        const unsigned b =
+            __ballot_sync(0xffffffffu, rs[t][c * 32 + lane] >= 0);
+        hit[t] |= ((b & 0xffffu ? 1u : 0u) | (b >> 16 ? 2u : 0u)) << (2 * c);
+      }
+      any |= hit[t];
+    }
+    issue_rules(i + 2 * DW_STAGES - 2);  // into the rule stage of i - 1
+    issue_rows(i + DW_STAGES - 1);   // into the row stage of step i - 1
+    cp_async_commit();
+#pragma unroll
+    for (int h = 0; h < HALVES; ++h) {
+      if (!((any >> h) & 1u)) continue;  // warp-uniform
+      const int kk = h * 16;
+      // B (g rows, K x N row-major) read transposed: n-tiles 2jp, 2jp + 1
+      unsigned bf[NJ / 2][4];
+#pragma unroll
+      for (int jp = 0; jp < NJ / 2; ++jp)
+        ldmatrix_x4_trans(bf[jp], &b_s[st][kk + r16][wj0 + jp * 16 + c8]);
+#pragma unroll
+      for (int t = 0; t < G; ++t) {
+        if (!((hit[t] >> h) & 1u)) continue;  // warp-uniform
+#pragma unroll
+        for (int mi = 0; mi < MI; ++mi) {
+          // A = the gathered rows transposed (M = channels i, K = rows v):
+          // ldmatrix.trans of a_s[v][i] gives its four 8x8 pieces in the
+          // order (i lo, v lo), (i lo, v hi), (i hi, v lo), (i hi, v hi)
+          unsigned x[4];
+          ldmatrix_x4_trans(x, &a_s[st][t][kk + r16][wi0 + mi * 16 + c8]);
+          const unsigned a[4] = {x[0], x[2], x[1], x[3]};
+#pragma unroll
+          for (int jp = 0; jp < NJ / 2; ++jp) {
+            mma_bf16(acc[t][mi][2 * jp], a, bf[jp][0], bf[jp][1]);
+            mma_bf16(acc[t][mi][2 * jp + 1], a, bf[jp][2], bf[jp][3]);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // epilogue: lane (gq, tq) holds rows gq and gq + 8 of each 16-row piece,
+  // columns 8j + 2tq and 8j + 2tq + 1 of every n-tile j
+  const int gq = lane >> 2, tq = lane & 3;
+  float* slab = out + (size_t)blockIdx.z * n_taps * cin * cout;
+#pragma unroll
+  for (int t = 0; t < G; ++t) {
+    if (k0 + t >= n_taps) break;
+    float* o = slab + (size_t)(k0 + t) * cin * cout;
+#pragma unroll
+    for (int mi = 0; mi < MI; ++mi)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = i0 + wi0 + mi * 16 + gq + half * 8;
+        if (row >= cin) continue;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          const int col = j0 + wj0 + j * 8 + 2 * tq;
+          const float v0 = acc[t][mi][j][2 * half];
+          const float v1 = acc[t][mi][j][2 * half + 1];
+          float* dst = o + (size_t)row * cout + col;
+          if (cout % 2 == 0 && col < cout) {
+            *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+          } else {
+            if (col < cout) dst[0] = v0;
+            if (col + 1 < cout) dst[1] = v1;
+          }
+        }
+      }
   }
 }
 
-// f32 variant: CUDA-core FMA on a (BI/16) x (BJ/16) micro-tile per thread
+// f32 variant (the small card-vs-CPU checks): CUDA-core FMA on a (BI/16) x
+// (BJ/16) micro-tile per thread; block (tile, tap, z) walks chunks z,
+// z + gridDim.z, ... of DWF_BV rulebook rows and skips those that all miss
+constexpr int DWF_BV = 64;
+
 template <int BI, int BJ>
 __global__ void __launch_bounds__(NT)
 conv_dw_fma(const float* __restrict__ feats, const float* __restrict__ g,
             const int* __restrict__ rules, int n_taps, int v_out, int cin,
-            int cout, int cpb, int n_chunks, float* __restrict__ out) {
+            int cout, float* __restrict__ out) {
   constexpr int TI = BI / 16, TJ = BJ / 16;
-  __shared__ int rule_s[DW_BV];
-  __shared__ float a_s[DW_BV][BI + 1];
-  __shared__ float b_s[DW_BV][BJ];
+  __shared__ int rule_s[DWF_BV];
+  __shared__ float a_s[DWF_BV][BI + 1];
+  __shared__ float b_s[DWF_BV][BJ];
   const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
   const int n_tj = (cout + BJ - 1) / BJ;
   const int i0 = (blockIdx.x / n_tj) * BI, j0 = (blockIdx.x % n_tj) * BJ;
@@ -918,30 +1066,30 @@ conv_dw_fma(const float* __restrict__ feats, const float* __restrict__ g,
 #pragma unroll
     for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
 
-  const int ch_end = min(n_chunks, (int)(blockIdx.z + 1) * cpb);
-  for (int ch = blockIdx.z * cpb; ch < ch_end; ++ch) {
-    const int v0 = ch * DW_BV;
+  const int n_chunks = (v_out + DWF_BV - 1) / DWF_BV;
+  for (int ch = blockIdx.z; ch < n_chunks; ch += gridDim.z) {
+    const int v0 = ch * DWF_BV;
     int hit = 0;
-    if (tid < DW_BV) {
+    if (tid < DWF_BV) {
       const int r = v0 + tid < v_out ? rk[v0 + tid] : -1;
       rule_s[tid] = r;
       hit = r >= 0;
     }
     if (!__syncthreads_or(hit)) continue;  // block-uniform
-    for (int t = tid; t < DW_BV * BI; t += NT) {
+    for (int t = tid; t < DWF_BV * BI; t += NT) {
       const int r = t / BI, c = t % BI;
       const int src = rule_s[r];
       a_s[r][c] = (src >= 0 && i0 + c < cin)
                       ? feats[(size_t)src * cin + i0 + c] : 0.f;
     }
-    for (int t = tid; t < DW_BV * BJ; t += NT) {
+    for (int t = tid; t < DWF_BV * BJ; t += NT) {
       const int r = t / BJ, c = t % BJ;
       b_s[r][c] = (rule_s[r] >= 0 && j0 + c < cout)
                       ? g[(size_t)(v0 + r) * cout + j0 + c] : 0.f;
     }
     __syncthreads();
 #pragma unroll 8
-    for (int v = 0; v < DW_BV; ++v) {
+    for (int v = 0; v < DWF_BV; ++v) {
       float a[TI], b[TJ];
 #pragma unroll
       for (int i = 0; i < TI; ++i) a[i] = a_s[v][ty * TI + i];
@@ -967,53 +1115,90 @@ conv_dw_fma(const float* __restrict__ feats, const float* __restrict__ g,
   }
 }
 
-template <int BI, int BJ>
-void launch_dw_tile(int dtype, const void* feats, const void* g,
-                    const int* rules, int n_taps, int v_out, int cin,
-                    int cout, int split, int cpb, int n_chunks, float* dst,
-                    cudaStream_t stream) {
+template <int BI, int BJ, int G>
+int launch_dw_tc(const void* feats, int lda, const void* g, int ldb,
+                 const int* rules, int n_taps, int v_out, int cin, int cout,
+                 int split, float* dst, cudaStream_t stream) {
+  constexpr int bytes = DwSmem<BI, BJ, G>::BYTES;
+  const cudaError_t e = cudaFuncSetAttribute(
+      conv_dw_tc<BI, BJ, G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
+  if (e != cudaSuccess) return (int)e;
   const int tiles = ((cin + BI - 1) / BI) * ((cout + BJ - 1) / BJ);
-  const dim3 grid(tiles, n_taps, split);
-  if (dtype == 1)
-    conv_dw_tc<BI, BJ><<<grid, TC_NT, 0, stream>>>(
-        (const __nv_bfloat16*)feats, (const __nv_bfloat16*)g, rules, n_taps,
-        v_out, cin, cout, cpb, n_chunks, dst);
-  else
-    conv_dw_fma<BI, BJ><<<grid, NT, 0, stream>>>(
-        (const float*)feats, (const float*)g, rules, n_taps, v_out, cin,
-        cout, cpb, n_chunks, dst);
+  const int rmode = v_out % 4 == 0 && (uintptr_t)rules % 16 == 0 ? 16 : 4;
+  conv_dw_tc<BI, BJ, G>
+      <<<dim3(tiles, (n_taps + G - 1) / G, split), DW_NT, bytes, stream>>>(
+          (const __nv_bfloat16*)feats, lda, (const __nv_bfloat16*)g, ldb,
+          rules, n_taps, v_out, cin, cout, rmode, dst);
+  return (int)cudaSuccess;
+}
+
+template <int BI, int BJ>
+int launch_dw_tile(int dtype, int group, const void* feats, int lda,
+                   const void* g, int ldb, const int* rules, int n_taps,
+                   int v_out, int cin, int cout, int split, float* dst,
+                   cudaStream_t stream) {
+  if (dtype == 1) {
+    if ((uintptr_t)feats % 16 || (uintptr_t)g % 16 || lda % 8 || ldb % 8 ||
+        lda < cin || ldb < cout)
+      return (int)cudaErrorInvalidValue;
+    switch (group) {
+      case 1:
+        return launch_dw_tc<BI, BJ, 1>(feats, lda, g, ldb, rules, n_taps,
+                                       v_out, cin, cout, split, dst, stream);
+      case 3:
+        return launch_dw_tc<BI, BJ, 3>(feats, lda, g, ldb, rules, n_taps,
+                                       v_out, cin, cout, split, dst, stream);
+      case 9:
+        return launch_dw_tc<BI, BJ, 9>(feats, lda, g, ldb, rules, n_taps,
+                                       v_out, cin, cout, split, dst, stream);
+    }
+    return (int)cudaErrorInvalidValue;
+  }
+  if (group != 1 || lda != cin || ldb != cout)
+    return (int)cudaErrorInvalidValue;
+  const int tiles = ((cin + BI - 1) / BI) * ((cout + BJ - 1) / BJ);
+  conv_dw_fma<BI, BJ><<<dim3(tiles, n_taps, split), NT, 0, stream>>>(
+      (const float*)feats, (const float*)g, rules, n_taps, v_out, cin, cout,
+      dst);
+  return (int)cudaSuccess;
 }
 
 }  // namespace
 
-// feats (V_in, Cin), g (V_out, Cout) of one dtype (0 = f32, 1 = bf16),
-// rules (K, V_out) int32 -> out (K, Cin, Cout) f32.  split > 1 writes the
-// (split, K, Cin, Cout) slabs of ``partial`` first; each z walks chunks
-// [z * cpb, (z + 1) * cpb) of 64 rulebook rows.
-extern "C" int sg_conv_dw(const void* feats, const void* g, const void* rules,
-                          int n_taps, int v_out, int cin, int cout,
-                          int dtype, int split, int cpb, void* out,
-                          void* partial, void* stream) {
+// feats (V_in, Cin) with row stride lda, g (V_out, Cout) with row stride
+// ldb, of one dtype (0 = f32: lda = Cin, ldb = Cout; 1 = bf16: lda and ldb
+// multiples of 8, zero channels past Cin / Cout), rules (K, V_out) int32 ->
+// out (K, Cin, Cout) f32.  Grid (Cin x Cout tiles, groups of ``group``
+// taps, split); block z walks steps z, z + split, ... of the rulebook's
+// rows (32 rows a step for bf16, 64 for f32, whose group is 1).  split > 1
+// writes the (split, K, Cin, Cout) slabs of ``partial`` first and sums them
+// in slab order.
+extern "C" int sg_conv_dw(const void* feats, int lda, const void* g,
+                          int ldb, const void* rules, int n_taps, int v_out,
+                          int cin, int cout, int dtype, int group, int split,
+                          void* out, void* partial, void* stream) {
   if (n_taps <= 0 || cin <= 0 || cout <= 0) return (int)cudaGetLastError();
-  const int n_chunks = (v_out + DW_BV - 1) / DW_BV;
-  if (split < 1 || cpb < 1 || (long long)split * cpb < n_chunks ||
-      (split > 1 && !partial) || split > 65535 || n_taps > 65535)
+  if (group < 1 || split < 1 || (split > 1 && !partial) || split > 65535 ||
+      (n_taps + group - 1) / group > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   float* dst = split > 1 ? (float*)partial : (float*)out;
   const int* r = (const int*)rules;
+  int rc;
   if (cin <= 32 && cout <= 32)
-    launch_dw_tile<32, 32>(dtype, feats, g, r, n_taps, v_out, cin, cout,
-                           split, cpb, n_chunks, dst, s);
+    rc = launch_dw_tile<32, 32>(dtype, group, feats, lda, g, ldb, r, n_taps,
+                                v_out, cin, cout, split, dst, s);
   else if (cin <= 32)
-    launch_dw_tile<32, 64>(dtype, feats, g, r, n_taps, v_out, cin, cout,
-                           split, cpb, n_chunks, dst, s);
+    rc = launch_dw_tile<32, 64>(dtype, group, feats, lda, g, ldb, r, n_taps,
+                                v_out, cin, cout, split, dst, s);
   else if (cout <= 32)
-    launch_dw_tile<64, 32>(dtype, feats, g, r, n_taps, v_out, cin, cout,
-                           split, cpb, n_chunks, dst, s);
+    rc = launch_dw_tile<64, 32>(dtype, group, feats, lda, g, ldb, r, n_taps,
+                                v_out, cin, cout, split, dst, s);
   else
-    launch_dw_tile<64, 64>(dtype, feats, g, r, n_taps, v_out, cin, cout,
-                           split, cpb, n_chunks, dst, s);
+    rc = launch_dw_tile<64, 64>(dtype, group, feats, lda, g, ldb, r, n_taps,
+                                v_out, cin, cout, split, dst, s);
+  if (rc != (int)cudaSuccess) return rc;
   if (split > 1) {
     const long long n = (long long)n_taps * cin * cout;
     long long blocks = (n + 255) / 256;
@@ -1033,29 +1218,36 @@ extern "C" int sg_rulebook_conv(const void* feats, const void* w,
                                 int v_out, int cin, int cout, void* out,
                                 int dtype, int split, void* partial,
                                 void* stream) {
-  if (cin < 1) return (int)cudaErrorInvalidValue;
+  if (cin < 1 || ld < v_out) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch_k1_bf16(feats, w, (const int*)rules, ld, n_taps, v_out,
-                          cin, cout, out, split, (float*)partial, s);
-  if (ld < v_out) return (int)cudaErrorInvalidValue;
-  RulebookTaps taps{(const int*)rules, ld};
-  return launch<float>(feats, w, taps, n_taps, v_out, cin, cout, out,
-                       split, (float*)partial, s);
+    return launch_k1_bf16(feats, w, RuleSlab{(const int*)rules, ld}, n_taps,
+                          v_out, cin, cout, out, split, (float*)partial, s);
+  return launch_fma(feats, w, RulebookTaps{(const int*)rules, ld}, n_taps,
+                    v_out, cin, cout, out, split, (float*)partial, s);
 }
 
+// out_keys (v_out,), in_keys (v_in,) sorted int32; strided: the k2s2 down
+// conv (8 taps; out_keys on the coarse grid of D = d), else the subm conv
+// (27 taps; ``same``: out_keys is in_keys).  bf16 runs K1's kernel with the
+// keyed prologue and cuts a tile's step list over split blocks; f32 runs
+// the FMA kernel and cuts the tap range.
 extern "C" int sg_keyed_conv(const void* feats, const void* w,
                              const void* out_keys, const void* in_keys,
                              int v_in, int v_out, int cin, int cout, int d,
-                             int strided, void* out, int dtype, int split,
-                             void* partial, void* stream) {
-  KeyedTaps taps{(const int*)out_keys, (const int*)in_keys, v_in, d,
-                 strided};
+                             int strided, int same, void* out, int dtype,
+                             int split, void* partial, void* stream) {
+  if (cin < 1 || d < 1) return (int)cudaErrorInvalidValue;
   const int n_taps = strided ? 8 : 27;
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 1)
-    return launch<__nv_bfloat16>(feats, w, taps, n_taps, v_out, cin, cout,
-                                 out, split, (float*)partial, s);
-  return launch<float>(feats, w, taps, n_taps, v_out, cin, cout, out,
-                       split, (float*)partial, s);
+    return launch_k1_bf16(
+        feats, w,
+        KeyedSlab{(const int*)out_keys, (const int*)in_keys, v_in, d,
+                  strided, same && !strided && v_in == v_out},
+        n_taps, v_out, cin, cout, out, split, (float*)partial, s);
+  return launch_fma(feats, w,
+                    KeyedTaps{(const int*)out_keys, (const int*)in_keys,
+                              v_in, d, strided},
+                    n_taps, v_out, cin, cout, out, split, (float*)partial, s);
 }

@@ -17,11 +17,19 @@
   from sorted linear keys ``((b*D + x)*D + y)*D + z`` on the proposal grid
   (bounds-tested like ``conv_kernel.py:848-871``).  Replaces
   ``conv_kernel.py:_keyed_kernel`` (driven by ``keyed_windowed_conv``):
-  the tiny refinement U-Net.
+  the tiny refinement U-Net.  bf16 runs K1's kernel, whose prologue here
+  fills the tile's rule slab by searches of the key table advanced in
+  lockstep (a subm search spans only the rows within its key offset), and
+  cuts a tile's step list like K1.
 * K5 ``rulebook_conv_dw`` — the weight gradient
   ``dW[k] = sum_v feats[rules[k, v]]^T g[v]`` (f32) of every rulebook conv
   of the training step.  Replaces ``conv_kernel.py:_dw_kernel`` (driven by
-  ``windowed_conv_dw``, dispatched by ``sparse_conv._dw``).
+  ``windowed_conv_dw``, dispatched by ``sparse_conv._dw``).  bf16: a block
+  takes a (Cin, Cout) tile, a group of taps (one on the deep levels) and
+  every split-th 32-row step, through a ``cp.async`` ring (rules four steps
+  ahead, rows two) into ``mma.sync``; the g rows of a step are read once
+  for the group; each block writes an f32 slab, summed in slab order
+  (deterministic).  f32 stays on CUDA-core FMA, one tap a block.
 
 Kernel source and design note: ``csrc/conv.cu``.  The TPU's windows,
 overflow corrections, bf16x3 split and transposed accumulator have no
@@ -56,12 +64,26 @@ _FILL_BLOCKS = 264
 # the same for the bf16 K1, whose blocks cut a tile's step list: 4 per SM
 # (the deep levels' times at 264, 528 and 1056 on an H100 favour 528)
 _K1_FILL_BLOCKS = 528
-# K5 cuts each tap's V reduction into contiguous ranges of 64-row chunks
-# until a launch has about this many blocks (~15 resident per SM of an
-# H100 at 32 channels): each range is a serial loop, so more blocks mean
-# shorter loops
-_DW_ROWS = 64
-_DW_FILL_BLOCKS = 2048
+# K4 runs K1's kernel and K1's step-list split for a smaller grid: its
+# capacity rows are mostly padding, and a split down conv's f32 slabs cost
+# more than the split gains (PERF.md, PR 4)
+_K4_FILL_BLOCKS = 256
+# K5, bf16: a block takes a group of taps (its f32 sums stay in registers,
+# G x the tile / 128 a thread; the g rows of a step are read once for the
+# group) and every split-th 32-row step of the rulebook, split chosen for a
+# launch of about _DW_FILL_BLOCKS blocks (one wave of 3 an SM), or
+# _DW_WIDE_FILL_BLOCKS for a group on a 64 x 64 tile (three waves of 2 an
+# SM); the grid sizes of the H100 sweep in PERF.md, PR 4.  Each block writes
+# an f32 slab, summed in slab order.  A rulebook of at most _DW_FEW_STEPS
+# steps (the deep levels) takes one tap a block, four blocks an SM.
+_DW_STEP_ROWS = 32
+_DW_GROUP = 3
+_DW_FEW_STEPS = 1024
+_DW_FILL_BLOCKS = 396
+_DW_WIDE_FILL_BLOCKS = 792
+# K5, f32 (CUDA-core FMA, one tap a block): 64-row chunks, ~15 blocks an SM
+_DW_FMA_ROWS = 64
+_DW_FMA_FILL_BLOCKS = 2048
 
 
 def _split(v_out: int, cout: int, parts: int, fill: int) -> int:
@@ -70,6 +92,20 @@ def _split(v_out: int, cout: int, parts: int, fill: int) -> int:
     cols = 32 if cout <= 32 else 64
     blocks = -(-v_out // _ROWS_PER_BLOCK) * -(-cout // cols)
     return 1 if blocks >= fill else min(parts, -(-fill // max(blocks, 1)))
+
+
+def _conv_split(k: int, cin: int, v_out: int, cout: int,
+                dtype: torch.dtype, fill: int | None = None) -> int:
+    """Blocks each 64-row tile of K1 or K4 is cut over.  bf16 cuts the
+    tile's step list (32 channels of (tap, 16- or 32-channel chunk) pieces,
+    csrc/conv.cu launch_k1_cols) for a grid of about ``fill`` blocks
+    (_K1_FILL_BLOCKS by default); f32 cuts the tap range for about
+    _FILL_BLOCKS."""
+    if dtype == torch.bfloat16:
+        pw = 16 if cin <= 16 else 32
+        return _split(v_out, cout, -(-k * -(-cin // pw) // (32 // pw)),
+                      _K1_FILL_BLOCKS if fill is None else fill)
+    return _split(v_out, cout, k, _FILL_BLOCKS)
 
 
 def _partial(split: int, v_out: int, cout: int, like: torch.Tensor):
@@ -126,14 +162,7 @@ def rulebook_conv(feats: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f'rulebook_conv: 1 to {_MAX_TAPS} taps, got {k}')
     v_out = rules.shape[1]
     out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
-    if feats.dtype == torch.bfloat16:
-        # a tile's steps: 32 channels of (tap, 16- or 32-channel chunk)
-        # pieces (csrc/conv.cu launch_k1_cols)
-        pw = 16 if cin <= 16 else 32
-        split = _split(v_out, cout, -(-k * -(-cin // pw) // (32 // pw)),
-                       _K1_FILL_BLOCKS)
-    else:   # f32 cuts the tap range
-        split = _split(v_out, cout, k, _FILL_BLOCKS)
+    split = _conv_split(k, cin, v_out, cout, feats.dtype)
     partial = _partial(split, v_out, cout, feats)
     rc = kernels.entry('conv', 'sg_rulebook_conv')(
         feats.data_ptr(), weight.data_ptr(), rules.data_ptr(),
@@ -208,15 +237,18 @@ def keyed_conv(feats: torch.Tensor, weight: torch.Tensor,
         raise ValueError('keyed_conv: weight taps do not match the conv')
     if in_keys.shape[0] != feats.shape[0]:
         raise ValueError('keyed_conv: one input key per feature row')
-    _, cin, cout = weight.shape
+    k, cin, cout = weight.shape
     v_out = out_keys.shape[0]
     out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
-    split = _split(v_out, cout, weight.shape[0], _FILL_BLOCKS)
+    split = _conv_split(k, cin, v_out, cout, feats.dtype, _K4_FILL_BLOCKS)
     partial = _partial(split, v_out, cout, feats)
+    # one key table for both sides of a subm conv: its searches span a
+    # window of rows, not the table
+    same = int(out_keys.data_ptr() == in_keys.data_ptr())
     rc = kernels.entry('conv', 'sg_keyed_conv')(
         feats.data_ptr(), weight.data_ptr(), out_keys.data_ptr(),
         in_keys.data_ptr(), feats.shape[0], v_out, cin, cout, int(d),
-        int(strided), out.data_ptr(), _DTYPES[feats.dtype], split,
+        int(strided), same, out.data_ptr(), _DTYPES[feats.dtype], split,
         partial.data_ptr() if split > 1 else None,
         kernels.stream(feats.device))
     kernels.check(rc, 'keyed_conv')
@@ -251,23 +283,27 @@ def rulebook_conv_dw(feats: torch.Tensor, g: torch.Tensor,
     if feats.dtype not in _DTYPES:
         raise ValueError(f'rulebook_conv_dw: feats must be float32 or '
                          f'bfloat16, got {feats.dtype}')
-    feats = _aligned(feats.contiguous())
-    g = _aligned(g.to(feats.dtype).contiguous())
+    feats, g = feats.contiguous(), g.to(feats.dtype).contiguous()
     rules = rules.to(torch.int32).contiguous()
     kernels.require_cuda('rulebook_conv_dw', feats, g, rules)
     k, v_out = rules.shape
     if g.shape[0] != v_out:
         raise ValueError('rulebook_conv_dw: one g row per rulebook column')
     cin, cout = feats.shape[1], g.shape[1]
+    bf16 = feats.dtype == torch.bfloat16
+    if bf16:   # the kernel copies 16-byte row pieces: rows of 8k channels
+        feats, g = _rows_of_8(feats), _rows_of_8(g)
+    feats, g = _aligned(feats), _aligned(g)
     out = torch.empty((k, cin, cout), dtype=torch.float32,
                       device=feats.device)
-    split, cpb = _dw_split(k, v_out, cin, cout)
+    group, split = _dw_plan(k, v_out, cin, cout, bf16)
     partial = torch.empty((split, k, cin, cout) if split > 1 else (0,),
                           dtype=torch.float32, device=feats.device)
     rc = kernels.entry('conv', 'sg_conv_dw')(
-        feats.data_ptr(), g.data_ptr(), rules.data_ptr(), k, v_out, cin,
-        cout, _DTYPES[feats.dtype], split, cpb, out.data_ptr(),
-        partial.data_ptr(), kernels.stream(feats.device))
+        feats.data_ptr(), feats.shape[1], g.data_ptr(), g.shape[1],
+        rules.data_ptr(), k, v_out, cin, cout, _DTYPES[feats.dtype], group,
+        split, out.data_ptr(), partial.data_ptr(),
+        kernels.stream(feats.device))
     kernels.check(rc, 'rulebook_conv_dw')
     rulebook_conv_dw.launches += 1
     return out
@@ -276,16 +312,29 @@ def rulebook_conv_dw(feats: torch.Tensor, g: torch.Tensor,
 rulebook_conv_dw.launches = 0
 
 
-def _dw_split(k: int, v_out: int, cin: int, cout: int) -> tuple[int, int]:
-    """(split, 64-row chunks per block) of a K5 launch: the grid is
-    (Cin x Cout tiles, K taps, split)."""
+def _dw_plan(k: int, v_out: int, cin: int, cout: int,
+             bf16: bool = True) -> tuple[int, int]:
+    """(taps a block, split) of a K5 launch: the grid is (Cin x Cout
+    tiles, ceil(K / group) tap groups, split), and block z walks steps z,
+    z + split, z + 2 split, ... of the rulebook's rows (32 rows a step for
+    bf16; f32 takes one tap a block and 64-row steps), so that a padded
+    tail of rows that miss spreads over all blocks.  Every block has at
+    least one step."""
     ti = 32 if cin <= 32 else 64
     tj = 32 if cout <= 32 else 64
-    base = k * -(-cin // ti) * -(-cout // tj)
-    n_chunks = max(1, -(-v_out // _DW_ROWS))
-    split = min(n_chunks, 65535, max(1, -(-_DW_FILL_BLOCKS // base)))
-    cpb = -(-n_chunks // split)
-    return -(-n_chunks // cpb), cpb
+    rows = _DW_STEP_ROWS if bf16 else _DW_FMA_ROWS
+    n_steps = max(1, -(-v_out // rows))
+    group = _DW_GROUP if bf16 and n_steps > _DW_FEW_STEPS else 1
+    fill = (_DW_FMA_FILL_BLOCKS if not bf16 else _DW_WIDE_FILL_BLOCKS
+            if group > 1 and ti == tj == 64 else _DW_FILL_BLOCKS)
+    base = -(-k // group) * -(-cin // ti) * -(-cout // tj)
+    return group, min(n_steps, 65535, max(1, -(-fill // base)))
+
+
+def _rows_of_8(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (V, C) with zero channels appended up to a multiple of 8."""
+    pad = -t.shape[1] % 8
+    return torch.nn.functional.pad(t, (0, pad)) if pad else t
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:

@@ -38,9 +38,10 @@ SIGNATURES = {
     'conv': {
         'sg_rulebook_conv': (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P,
                              _P),
-        'sg_keyed_conv': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I,
-                          _I, _P, _P),
-        'sg_conv_dw': (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P),
+        'sg_keyed_conv': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                          _I, _I, _P, _P),
+        'sg_conv_dw': (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                       _P, _P),
     },
     'gather': {'sg_row_gather': (_P, _P, _I, _I, _I, _LL, _P, _P),
                'sg_segment_sum': (_P, _P, _LL, _I, _I, _I, _P, _P, _P,

@@ -1,34 +1,74 @@
-"""Times of the K1 and K2 kernels at the serving path's shapes on one card,
-and the timing helpers ``chip_smoke.py`` uses.
+"""Times of the port's kernels at the main paths' shapes on one card, and
+the timing and bound helpers ``chip_smoke.py`` uses.
 
-    python -m softgroup_tpu_torch.time_kernels [label] [--fill N,...]
-    PYTHONPATH=<other checkout> python softgroup_tpu_torch/time_kernels.py \
-        [label]
+    python -m softgroup_tpu_torch.time_kernels [label] [--cases k1,k2,k4,k5]
+        [--fill N,...] [--dw-group G,...] [--dw-fill N,...]
+    PYTHONPATH=<other checkout> python softgroup_tpu_torch/time_kernels.py \\
+        [label] [...]
 
 One 250k-point room (seed 0) goes through ``test_forward`` of the seeded
 flagship net (bf16, semantic head biased as in ``chip_smoke.py``) while the
-K1 and K2 call sites record their arguments.  Each K1 / K2 case of
-``chip_smoke.py`` is then timed three ways and printed as one line
+K1, K2 and K4 call sites record their arguments; with ``k5`` in
+``--cases``, one all-params train step of the flagship training config
+(4 x 250k-point rooms, seeds 200-203) records every K5 call.  Each case is
+then timed and printed as one line
 ``time_kernels <label> <case> device_ms=... ms=... host_us=...``:
   * device_ms: the kernels' own time a call (the profiler's CUDA time over
     20 calls, divided by 20), without the host's gaps between launches;
   * ms: CUDA events around 10 back-to-back calls of the wrapper, over 10;
   * host_us: the wrapper's CPU time a call, launch included.
-K2's cases add ``library_device_ms`` (``torch.index_select``).  ``--fill``
-times the deep K1 cases at several values of
-``conv_kernel._K1_FILL_BLOCKS`` (the grid size below which a tile's work is
-split over several blocks; ``_FILL_BLOCKS`` in a checkout without it).
-The second form runs this file's cases on another checkout's package, so
-two versions compare on one card in one command, in turns (a, b, b, a).
+K2's cases add ``library_device_ms`` (``torch.index_select``).  K5 is timed
+as a census: one line per distinct shape (K, V_out, Cin, Cout) of the
+step's calls with its launches, share of rules that hit, ``device_ms``, the
+bound (``dw_bound``) and the error against the plain version, then the
+shapes ranked by launches x ``device_ms``.  K4's subm case is timed once
+more with two equal key tables (the search over the whole table).
+
+``--fill`` times the deep K1 cases and K4's at several values of
+``conv_kernel._K1_FILL_BLOCKS`` / ``_K4_FILL_BLOCKS`` (the grid size below
+which a tile's work is split over several blocks); ``--dw-group`` times the
+K5 census with every shape's tap group (``conv_kernel._DW_GROUP``) set to
+each value, and ``--dw-fill`` at each value of
+``conv_kernel._DW_FILL_BLOCKS`` (and of ``_DW_WIDE_FILL_BLOCKS``). The
+second form runs this file's cases on another checkout's package, so two
+versions compare on one card in one command, in turns (a, b, b, a); a sweep
+applies only where that package has its constant.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import time
 
 # the profiler's calls a device time is averaged over
 DEVICE_REPS = 20
+# card peaks used for the bounds (NVIDIA H100 SXM data sheet, dense)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {'bfloat16': 989e12, 'float32': 67e12}
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound(byts: float, flops: float, dtype) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_bytes = byts / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(dtype).split('.')[-1]]
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                        else 'operations')
+
+
+def dw_bound(feats, g, rules) -> tuple[float, str]:
+    """K5's bound: one read of feats, g (in feats' type) and the rules, one
+    write of the (K, Cin, Cout) f32 result; the FLOPs of the rules that
+    hit."""
+    k, cin, cout = rules.shape[0], feats.shape[1], g.shape[1]
+    hits = int((rules >= 0).sum())
+    byts = nbytes(feats, rules) + g.numel() * feats.element_size() \
+        + k * cin * cout * 4
+    return bound(byts, 2.0 * hits * cin * cout, feats.dtype)
 
 
 def cuda_ms(fn, reps: int = 10, warm: int = 2) -> float:
@@ -101,7 +141,8 @@ def host_us(fn, reps: int = 20) -> float:
 
 class Recorder:
     """Wraps the kernel wrappers at their call sites during one run and
-    keeps a clone of the arguments of every call."""
+    keeps a clone of the arguments of every call (one clone for a tensor
+    passed twice in a call, as K4's subm conv passes its key table)."""
 
     def __init__(self, sites):
         self.sites = sites          # [(module, attribute name)]
@@ -114,8 +155,9 @@ class Recorder:
             orig = getattr(mod, name)
 
             def wrapped(*args, _orig=orig, _name=name, **kw):
-                keep = [a.detach().clone() if isinstance(a, torch.Tensor)
-                        else a for a in args]
+                clones = {}
+                keep = [clones.setdefault(id(a), a.detach().clone())
+                        if isinstance(a, torch.Tensor) else a for a in args]
                 self.calls.setdefault(_name, []).append((keep, kw))
                 return _orig(*args, **kw)
             # a wrapper wrapped in its own module counts its launches on
@@ -173,18 +215,116 @@ def k1_k2_args(calls: dict, v0: int, cells: int) -> dict:
     }
 
 
+def k4_args(calls: list) -> dict:
+    """K4's two cases (the refinement U-Net's subm conv on the D=20 grid
+    and its down conv onto D=10), as (args, kwargs) by label, from the
+    recorded ``keyed_conv`` calls of one request."""
+    return {
+        'K4 subm D=20 32->32': pick(
+            calls, lambda a, k: not k['strided'] and a[4] == 20
+            and a[1].shape[1:] == (32, 32), 'keyed subm D=20'),
+        'K4 down D=10 32->64': pick(
+            calls, lambda a, k: k['strided'] and a[4] == 10,
+            'keyed down D=10'),
+    }
+
+
+def dw_shape_label(shape: tuple, caps, base: int = 32) -> str:
+    """``L<level> subm|tail|input|down/up`` of a K5 call of shape (K,
+    V_out, Cin, Cout) in a train step with capacities ``caps`` and
+    ``base`` channels at level 0 (``tiny L<level>`` for the refinement
+    U-Net's levels, whose capacities may equal a backbone level's); a down
+    conv and the inverse conv paired with it share a shape."""
+    k, v, cin, cout = shape
+    where, lvl = f'V={v}', None
+    for name, caps_ in (('tiny L', caps.inst_voxels), ('L', caps.voxels)):
+        for i, c in enumerate(caps_):
+            if c == v and (lvl is None or cout == base * (i + 1)):
+                where, lvl = f'{name}{i}', i
+    if k == 8:
+        return (f'{where[:-1]}{lvl - 1}->{where} down/up' if lvl
+                else f'{where} down/up')
+    kind = 'input' if cin < 16 else 'tail' if cin == 2 * cout else 'subm'
+    return f'{where} {kind}'
+
+
+def k5_census(calls: list, caps) -> list[dict]:
+    """The recorded ``rulebook_conv_dw`` calls of one train step grouped by
+    shape (K, V_out, Cin, Cout), in order of first call: each with its
+    label, its launches in the step and the arguments of its first call."""
+    groups: dict[tuple, dict] = {}
+    for args, _ in calls:
+        feats, g, rules = args
+        shape = (rules.shape[0], rules.shape[1], feats.shape[1], g.shape[1])
+        if shape not in groups:
+            groups[shape] = dict(shape=shape, args=args, launches=0,
+                                 label=dw_shape_label(shape, caps))
+        groups[shape]['launches'] += 1
+    return list(groups.values())
+
+
+def k5_args(calls: list, caps) -> dict:
+    """The K5 cases of ``chip_smoke.py``, by label, from the recorded
+    ``rulebook_conv_dw`` calls of one all-params train step."""
+    v0, v1 = caps.voxels[0], caps.voxels[1]
+
+    def shape(k, v, cin, cout):
+        return lambda a, kw: (a[2].shape == (k, v) and a[0].shape[1] == cin
+                              and a[1].shape[1] == cout)
+    return {
+        'L0 subm 32->32': pick(calls, shape(27, v0, 32, 32), 'dW L0')[0],
+        'L1 subm 64->64': pick(calls, shape(27, v1, 64, 64), 'dW L1')[0],
+        'L2 subm 96->96': pick(calls, shape(27, caps.voxels[2], 96, 96),
+                               'dW L2')[0],
+        'L5 tail 384->192': pick(
+            calls, lambda a, k: a[0].shape[1] == 384
+            and a[1].shape[1] == 192, 'dW 384->192')[0],
+        'L6 subm 224->224': pick(
+            calls, lambda a, k: a[0].shape[1] == 224
+            and a[1].shape[1] == 224, 'dW 224->224')[0],
+        'L0->L1 (8, V1) 32->64': pick(calls, shape(8, v1, 32, 64),
+                                      'dW down L0')[0],
+        f'tiny U-Net subm {caps.inst_voxels[0]} 32->32': pick(
+            calls, shape(27, caps.inst_voxels[0], 32, 32), 'dW tiny')[0],
+    }
+
+
+def _timed(label, name, fn, card, extra='', device_only=False):
+    dev = device_ms(fn)
+    more = '' if device_only else \
+        f' ms={cuda_ms(fn):.6f} host_us={host_us(fn):.3f}'
+    print(f'time_kernels {label} {name} device_ms={dev:.6f}{more}{extra} '
+          f'[{card}]', flush=True)
+    return dev
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument('label', nargs='?', default='')
+    ap.add_argument('--cases', default='k1,k2,k4,k5',
+                    help='comma-separated kernel families to time')
     ap.add_argument('--fill', default='',
-                    help='comma-separated _FILL_BLOCKS values to time the '
+                    help='comma-separated _K1_FILL_BLOCKS values to time the '
                          'deep K1 cases at')
+    ap.add_argument('--dw-group', default='',
+                    help='comma-separated K5 tap-group sizes to time the '
+                         'census at')
+    ap.add_argument('--dw-fill', default='',
+                    help='comma-separated _DW_FILL_BLOCKS values to time the '
+                         'census at')
+    ap.add_argument('--shapes', default='',
+                    help='comma-separated labels of the census shapes to '
+                         'time (all by default)')
+    ap.add_argument('--device-only', action='store_true',
+                    help='time the K5 census on device time alone')
     args = ap.parse_args()
+    families = set(args.cases.split(','))
     import numpy as np
     import torch
 
     from softgroup_tpu_torch import entry
     from softgroup_tpu_torch.data.synthetic import make_room_scene
+    from softgroup_tpu_torch.model import blocks
     from softgroup_tpu_torch.model import softgroup as sg
     from softgroup_tpu_torch.ops import conv_kernel as ck
     from softgroup_tpu_torch.ops import gather_kernel as gk
@@ -192,46 +332,147 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit('time_kernels: needs a CUDA card')
     kernels.build_all()
-    cfg, caps = entry.flagship_cfg(), entry.bench_capacities()
-    net = entry.build_net(cfg, seed=0, device='cuda')
-    with torch.no_grad():
-        net.semantic_linear.final_bias[2:4] = 2.5
-    batch = entry.build_batch(make_room_scene(np.random.RandomState(0),
-                                              n_points=250000,
-                                              n_instances=12), cfg, caps)
-    sites = [(sparse_conv, 'rulebook_conv'), (gk, 'row_gather'),
-             (grouping, 'row_gather'), (sg, 'row_gather')]
-    with Recorder(sites) as rec:
-        entry.infer(net, batch, cfg, caps)
-        torch.cuda.synchronize()
-    cases = k1_k2_args(rec.calls, caps.voxels[0], caps.grouping_cells)
     card = torch.cuda.get_device_name(0)
-    fills = [int(f) for f in args.fill.split(',') if f] or [None]
-    for name, a in cases.items():
-        if name.startswith('K1'):
-            feats, w, rules = a[0].bfloat16(), a[1].bfloat16(), a[2]
-            deep = feats.shape[1] >= 224
-            for fill in (fills if deep else [None]):
-                if fill is not None:   # bf16 K1's constant, or an older one
-                    name_ = ('_K1_FILL_BLOCKS' if hasattr(
-                        ck, '_K1_FILL_BLOCKS') else '_FILL_BLOCKS')
-                    setattr(ck, name_, fill)
-                fn = (lambda f=feats, w_=w, r=rules:
-                      ck.rulebook_conv(f, w_, r))
-                tag = f' fill={fill}' if fill is not None else ''
-                print(f'time_kernels {args.label} {name} bf16{tag} '
-                      f'device_ms={device_ms(fn):.6f} ms={cuda_ms(fn):.6f} '
-                      f'host_us={host_us(fn):.3f} [{card}]', flush=True)
-        else:
-            src, idx = a
-            idx_l = idx.long().clamp(0, src.shape[0] - 1)
-            fn = (lambda s=src, i=idx: gk.row_gather(s, i))
-            lib = (lambda s=src, i=idx_l: torch.index_select(s, 0, i))
-            print(f'time_kernels {args.label} {name} idx={idx.dtype} '
-                  f'device_ms={device_ms(fn):.6f} ms={cuda_ms(fn):.6f} '
-                  f'host_us={host_us(fn):.3f} '
-                  f'library_device_ms={device_ms(lib):.6f} '
-                  f'library_ms={cuda_ms(lib):.6f} [{card}]', flush=True)
+    lbl = args.label
+
+    def lift(net):
+        with torch.no_grad():
+            net.semantic_linear.final_bias[2:4] = 2.5
+        return net
+
+    if families & {'k1', 'k2', 'k4'}:
+        cfg, caps = entry.flagship_cfg(), entry.bench_capacities()
+        net = lift(entry.build_net(cfg, seed=0, device='cuda'))
+        batch = entry.build_batch(make_room_scene(
+            np.random.RandomState(0), n_points=250000, n_instances=12),
+            cfg, caps)
+        sites = [(sparse_conv, 'rulebook_conv'), (gk, 'row_gather'),
+                 (grouping, 'row_gather'), (sg, 'row_gather'),
+                 (blocks, 'keyed_conv')]
+        with Recorder(sites) as rec:
+            entry.infer(net, batch, cfg, caps)
+            torch.cuda.synchronize()
+        cases = k1_k2_args(rec.calls, caps.voxels[0], caps.grouping_cells)
+        fills = [int(f) for f in args.fill.split(',') if f] or [None]
+        fill0 = ck._K1_FILL_BLOCKS
+        for name, a in cases.items():
+            if name.startswith('K1') and 'k1' in families:
+                feats, w, rules = a[0].bfloat16(), a[1].bfloat16(), a[2]
+                deep = feats.shape[1] >= 224
+                for fill in (fills if deep else [None]):
+                    ck._K1_FILL_BLOCKS = fill0 if fill is None else fill
+                    tag = f' fill={fill}' if fill is not None else ''
+                    _timed(lbl, f'{name} bf16{tag}',
+                           lambda f=feats, w_=w, r=rules:
+                           ck.rulebook_conv(f, w_, r), card)
+            elif name.startswith('K2') and 'k2' in families:
+                src, idx = a
+                idx_l = idx.long().clamp(0, src.shape[0] - 1)
+                lib = (lambda s=src, i=idx_l: torch.index_select(s, 0, i))
+                _timed(lbl, f'{name} idx={idx.dtype}',
+                       lambda s=src, i=idx: gk.row_gather(s, i), card,
+                       f' library_device_ms={device_ms(lib):.6f} '
+                       f'library_ms={cuda_ms(lib):.6f}')
+        if 'k4' in families:
+            k4 = list(k4_args(rec.calls['keyed_conv']).items())
+            # the subm conv again with two equal key tables: its searches
+            # span the whole table, not the rows within the key offset
+            (name, (a, kw)) = k4[0]
+            k4.append((f'{name} two tables', ([*a[:3], a[3].clone(), a[4]],
+                                              kw)))
+            # K4's split target (K1's in a package without its own)
+            attr = '_K4_FILL_BLOCKS' if hasattr(ck, '_K4_FILL_BLOCKS') \
+                else '_K1_FILL_BLOCKS'
+            k4_fill0 = getattr(ck, attr)
+            for name, (a, kw) in k4:
+                feats, w, ok, ik, d = a
+                for fill in fills:
+                    setattr(ck, attr, k4_fill0 if fill is None else fill)
+                    tag = f' fill={fill}' if fill is not None else ''
+                    _timed(lbl, f'{name} bf16{tag}',
+                           lambda f=feats, w_=w, o=ok, i=ik, d_=d,
+                           s=kw['strided']: ck.keyed_conv(f, w_, o, i, d_,
+                                                          s), card)
+            setattr(ck, attr, k4_fill0)
+        ck._K1_FILL_BLOCKS = fill0
+        del rec, cases, net, batch
+
+    if 'k5' in families:
+        tcfg, tcaps = entry.train_cfg(), entry.train_capacities()
+        scenes = [make_room_scene(np.random.RandomState(200 + j),
+                                  n_points=250000, n_instances=12)
+                  for j in range(4)]
+        tbatch = entry.build_train_batch(scenes, tcfg, tcaps)
+        state = entry.build_train_state(
+            lift(entry.build_net(tcfg, seed=0, device='cuda')), tcfg, tcaps)
+        with Recorder([(sparse_conv, 'rulebook_conv_dw')]) as trec:
+            state.step(tbatch, generator=torch.Generator().manual_seed(0))
+            torch.cuda.synchronize()
+        del state, tbatch
+        torch.cuda.empty_cache()
+        census = k5_census(trec.calls['rulebook_conv_dw'], tcaps)
+        if args.shapes:
+            census = [c for c in census
+                      if c['label'] in args.shapes.split(',')]
+        del trec
+
+        def values(opt):
+            return [int(x) for x in opt.split(',') if x] or [None]
+        group0 = getattr(ck, '_DW_GROUP', None)
+        few0 = getattr(ck, '_DW_FEW_STEPS', None)
+        fill0 = getattr(ck, '_DW_FILL_BLOCKS', None)
+        wide0 = getattr(ck, '_DW_WIDE_FILL_BLOCKS', None)
+        for grp, fill in itertools.product(values(args.dw_group),
+                                           values(args.dw_fill)):
+            if (grp is not None and group0 is None) or (
+                    fill is not None and fill0 is None):
+                continue   # a constant this package does not have
+            if grp is not None:   # every shape at this group
+                ck._DW_GROUP, ck._DW_FEW_STEPS = grp, 0
+            if fill is not None:
+                ck._DW_FILL_BLOCKS = ck._DW_WIDE_FILL_BLOCKS = fill
+            tag = (f' group={grp}' if grp is not None else '') + \
+                (f' fill={fill}' if fill is not None else '')
+            total = 0.0
+            for c in census:
+                feats, g, rules = c['args']
+                b_ms, b_by = dw_bound(feats, g, rules)
+                name = f'K5 census {c["label"]} {c["shape"]}{tag}'
+                try:
+                    got = ck.rulebook_conv_dw(feats, g, rules).double()
+                    want = ck.rulebook_conv_dw_plain(feats, g, rules)
+                    rel = float((got - want).abs().max()) / max(
+                        1.0, float(want.abs().max()))
+                    del got, want
+                    hits = float((rules >= 0).float().mean())
+                    dev = _timed(
+                        lbl, name, lambda f=feats, g_=g, r=rules:
+                        ck.rulebook_conv_dw(f, g_, r), card,
+                        f' launches={c["launches"]} hits={hits:.4f} '
+                        f'bound_ms={b_ms:.6f} ({b_by}) rel_err={rel:.3g}',
+                        args.device_only)
+                except RuntimeError as e:   # a sweep's setting the
+                    # kernel refuses (shared memory): no time
+                    print(f'time_kernels {lbl} {name} failed: {e}',
+                          flush=True)
+                    dev = float('nan')
+                c['device_ms'] = dev
+                total += dev * c['launches']
+            print(f'time_kernels {lbl} K5 census{tag}: '
+                  f'{sum(c["launches"] for c in census)} launches, '
+                  f'sum of launches x device_ms = {total:.6f} ms '
+                  f'[{card}]', flush=True)
+            for c in sorted(census, key=lambda c: -c['device_ms']
+                            * c['launches']):
+                print(f'time_kernels {lbl} K5 rank{tag} {c["label"]} '
+                      f'{c["shape"]} launches={c["launches"]} '
+                      f'launches_x_device_ms='
+                      f'{c["launches"] * c["device_ms"]:.6f}',
+                      flush=True)
+        if group0 is not None:
+            ck._DW_GROUP, ck._DW_FEW_STEPS = group0, few0
+        if fill0 is not None:
+            ck._DW_FILL_BLOCKS, ck._DW_WIDE_FILL_BLOCKS = fill0, wide0
 
 
 if __name__ == '__main__':

@@ -204,6 +204,70 @@ def test_keyed_conv(dev, strided):
         2.0 ** -7 * max(1.0, float(want.abs().max()))
 
 
+def _grid_keys(d: int, n: int, seed: int) -> np.ndarray:
+    """``n`` sorted unique keys ((b*D + x)*D + y)*D + z of two batches on a
+    D-grid, every voxel of the grid's six faces of batch 0 among them."""
+    rng = np.random.RandomState(seed)
+    c = np.arange(d)
+    x, y, z = np.meshgrid(c, c, c, indexing='ij')
+    face = ((x == 0) | (x == d - 1) | (y == 0) | (y == d - 1) | (z == 0)
+            | (z == d - 1)).ravel()
+    keys = np.flatnonzero(face)
+    more = rng.randint(0, 2 * d ** 3, 4 * n)
+    keys = np.unique(np.concatenate([keys, more]))
+    return np.sort(rng.choice(keys, n, replace=False)).astype(np.int32)
+
+
+@pytest.mark.parametrize('case', ['subm faces', 'subm negative keys',
+                                  'subm two tables', 'subm cin 6',
+                                  'subm few tiles', 'down',
+                                  'down few tiles'])
+def test_keyed_conv_cases(dev, case):
+    """K4 (K1's kernel with the keyed prologue) against its plain version:
+    subm on the D=20 grid with every face voxel present (neighbours off the
+    grid), INT_MAX padding, negative keys (no voxel) at the table's head,
+    two distinct but equal key tables (the search over the whole table),
+    Cin = 6, and few tiles (a tile's steps cut over several blocks)."""
+    few = 'few tiles' in case
+    d = 20 if case.startswith('subm') else 10
+    n = 150 if few else 3000
+    fine = _grid_keys(20, n, seed=len(case))
+    cap = 256 if few else 4096
+    keys = np.full(cap, INT_MAX, np.int32)
+    keys[:len(fine)] = fine
+    if case == 'subm negative keys':
+        keys[:5] = -np.arange(5, 0, -1, dtype=np.int32) * 7
+        keys = np.sort(keys)
+    cin = 6 if case == 'subm cin 6' else 32
+    g = torch.Generator(device=dev).manual_seed(len(case) + 1)
+    feats = torch.randn(cap, cin, device=dev, generator=g).bfloat16()
+    in_keys = torch.from_numpy(keys).to(dev)
+    if case.startswith('down'):
+        b, r = fine // 20 ** 3, fine % 20 ** 3
+        x, y, zz = r // 400, (r // 20) % 20, r % 20
+        coarse = np.unique(((b * d + x // 2) * d + y // 2) * d + zz // 2)
+        ok = np.full(cap, INT_MAX, np.int32)
+        ok[:len(coarse)] = coarse
+        out_keys, k, cout = torch.from_numpy(ok).to(dev), 8, 64
+    else:
+        out_keys, k, cout = in_keys, 27, 32
+        if case == 'subm two tables':
+            in_keys = in_keys.clone()
+    w = (torch.randn(k, cin, cout, device=dev, generator=g) * 0.1).bfloat16()
+    strided = case.startswith('down')
+    got = ck.keyed_conv(feats, w, out_keys, in_keys, d, strided).double()
+    want = ck.keyed_conv_plain(feats, w, out_keys, in_keys, d,
+                               strided).double()
+    assert got.shape == (out_keys.shape[0], cout)
+    assert float((got - want).abs().max()) <= \
+        2.0 ** -7 * max(1.0, float(want.abs().max()))
+    rules = ck.rules_from_keys(out_keys, in_keys, d, strided)
+    assert int((rules >= 0).sum()) >= n - 5
+    if few:   # a tile's steps cut over several blocks
+        assert ck._conv_split(k, cin, out_keys.shape[0], cout,
+                              torch.bfloat16) > 1
+
+
 def _conv_dw_case(dev, dtype, k, cin, cout, v_in, v_out, seed):
     g = torch.Generator(device=dev).manual_seed(seed)
     f = torch.randn(v_in, cin, device=dev, generator=g).to(dtype)
@@ -280,3 +344,63 @@ def test_rules_join_exact(dev):
     assert torch.equal(got, jk.sorted_key_rules_join_plain(*args, dims,
                                                            offs))
     assert int((got >= 0).sum()) > 10000
+
+
+def _dw_rules(dev, k, v_in, v_out, seed):
+    """(K, V_out) rules with a quarter of the rows hitting each tap, whole
+    32-row steps that all miss and 96 rows that all hit."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = torch.randint(-3 * v_in, v_in, (k, v_out), device=dev,
+                      generator=g).int()
+    r = torch.where(r < 0, -1, r)
+    r[:, v_out // 2:v_out // 2 + 320] = -1
+    r[:, 64:160] = torch.randint(0, v_in, (k, 96), device=dev, generator=g,
+                                 dtype=torch.int32)
+    return r
+
+
+@pytest.mark.parametrize('group', [1, 3, 9])
+@pytest.mark.parametrize('fill', [1, 4096], ids=['split1', 'split'])
+@pytest.mark.parametrize('k,cin,cout,v_out', [
+    (8, 32, 64, 6000), (27, 6, 32, 5003), (27, 19, 35, 4001),
+    (27, 35, 19, 4004), (27, 64, 64, 6000), (27, 96, 96, 5003),
+    (8, 96, 128, 3000), (27, 384, 192, 2048)])
+def test_conv_dw_groups(dev, monkeypatch, group, fill, k, cin, cout, v_out):
+    """K5 bf16 against its plain version with every shape's tap group set
+    to 1, 3 and 9 (groups that do not divide K = 8 or 27), one block per
+    (tile, group) or the rows cut over several; widths on the 16-byte,
+    4-byte and 2-byte copy paths and ragged tiles; V_out not a multiple of
+    the 32-row step, and not of 4 (the rules' 4-byte path).  Two calls are
+    bitwise equal."""
+    monkeypatch.setattr(ck, '_DW_GROUP', group)
+    monkeypatch.setattr(ck, '_DW_FEW_STEPS', 0)
+    monkeypatch.setattr(ck, '_DW_FILL_BLOCKS', fill)
+    monkeypatch.setattr(ck, '_DW_WIDE_FILL_BLOCKS', fill)
+    g = torch.Generator(device=dev).manual_seed(k + cin + cout)
+    f = torch.randn(3000, cin, device=dev, generator=g).bfloat16()
+    go = torch.randn(v_out, cout, device=dev, generator=g).bfloat16()
+    r = _dw_rules(dev, k, 3000, v_out, cin * cout)
+    got = ck.rulebook_conv_dw(f, go, r)
+    assert torch.equal(got, ck.rulebook_conv_dw(f, go, r))
+    want = ck.rulebook_conv_dw_plain(f, go, r).double()
+    assert got.shape == (k, cin, cout)
+    assert float((got.double() - want).abs().max()) <= \
+        1e-4 * max(1.0, float(want.abs().max()))
+    split = ck._dw_plan(k, v_out, cin, cout)[1]
+    assert (split == 1) == (fill == 1)
+
+
+def test_conv_dw_tiny_unet_shape(dev):
+    """K5 at the training refinement U-Net's shape (27, 131072) 32->32,
+    with the capacity's padded tail all -1; bitwise equal across calls."""
+    v_in, v_out = 100000, 131072
+    g = torch.Generator(device=dev).manual_seed(5)
+    f = torch.randn(v_in, 32, device=dev, generator=g).bfloat16()
+    go = torch.randn(v_out, 32, device=dev, generator=g).bfloat16()
+    r = _dw_rules(dev, 27, v_in, v_out, 6)
+    r[:, v_in:] = -1
+    got = ck.rulebook_conv_dw(f, go, r)
+    assert torch.equal(got, ck.rulebook_conv_dw(f, go, r))
+    want = ck.rulebook_conv_dw_plain(f, go, r).double()
+    assert float((got.double() - want).abs().max()) <= \
+        1e-4 * max(1.0, float(want.abs().max()))

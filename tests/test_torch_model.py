@@ -235,7 +235,9 @@ def test_time_kernels_finds_chip_smoke_cases():
     from softgroup_tpu_torch.model import softgroup as sg
     from softgroup_tpu_torch.ops import conv_kernel, gather_kernel
     from softgroup_tpu_torch.ops import grouping, sparse_conv
-    from softgroup_tpu_torch.time_kernels import Recorder, k1_k2_args
+    from softgroup_tpu_torch.model import blocks
+    from softgroup_tpu_torch.time_kernels import (Recorder, k1_k2_args,
+                                                  k4_args)
     caps = Capacities(
         points=16384, voxels=(16384, 8192, 4096, 2048, 1024, 512, 256),
         grouping_points=32768, proposals=32, proposal_entries=32768,
@@ -248,11 +250,19 @@ def test_time_kernels_finds_chip_smoke_cases():
                                          n_points=8000, n_instances=6),
                               cfg, caps, device='cpu')
     sites = [(sparse_conv, 'rulebook_conv'), (gather_kernel, 'row_gather'),
-             (grouping, 'row_gather'), (sg, 'row_gather')]
+             (grouping, 'row_gather'), (sg, 'row_gather'),
+             (blocks, 'keyed_conv')]
     with Recorder(sites) as rec:
         entry.infer(net, batch, cfg, caps)
     assert sparse_conv.rulebook_conv is conv_kernel.rulebook_conv
     assert grouping.row_gather is gather_kernel.row_gather
+    assert blocks.keyed_conv is conv_kernel.keyed_conv
+    keyed = k4_args(rec.calls['keyed_conv'])
+    (a, kw), (b, kwb) = keyed['K4 subm D=20 32->32'], \
+        keyed['K4 down D=10 32->64']
+    assert not kw['strided'] and a[2] is a[3] and a[4] == 20   # one table
+    assert a[0].shape == (caps.inst_voxels[0], 32)
+    assert kwb['strided'] and b[1].shape == (8, 32, 64)
     cases = k1_k2_args(rec.calls, caps.voxels[0], caps.grouping_cells)
     assert len(cases) == 10
     feats, w, rules = cases['K1 L0 subm 32->32']
@@ -260,3 +270,43 @@ def test_time_kernels_finds_chip_smoke_cases():
     assert cases['K1 L5 tail 384->192'][1].shape == (27, 384, 192)
     src, idx = cases['K2 cell labels (m+1,) int32']
     assert src.shape == (4097,) and idx.dim() == 1
+
+
+def test_time_kernels_finds_k5_cases():
+    """The K5 census and cases of ``time_kernels`` / ``chip_smoke.py`` are
+    picked from one recorded all-params train step of the flagship training
+    config (every level, small capacities): 79 calls in 24 shapes, each
+    labelled by its level, and every ``chip_smoke.py`` case found."""
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.data.synthetic import make_scene
+    from softgroup_tpu_torch.ops import conv_kernel, sparse_conv
+    from softgroup_tpu_torch.time_kernels import (Recorder, k5_args,
+                                                  k5_census)
+    caps = Capacities(
+        points=16384, voxels=(16384, 8192, 4096, 2048, 1024, 512, 256),
+        grouping_points=32768, proposals=32, proposal_entries=32768,
+        instances=32, inst_voxels=(4096, 1024), grouping_cells=4096)
+    cfg = entry.train_cfg()
+    net = entry.build_net(cfg, seed=1, device='cpu', bf16=True)
+    state = entry.build_train_state(net, cfg, caps)
+    batch = entry.build_train_batch(
+        [make_scene(np.random.RandomState(7), n_points=8000,
+                    n_instances=6)], cfg, caps, device='cpu')
+    with Recorder([(sparse_conv, 'rulebook_conv_dw')]) as rec:
+        state.step(batch, generator=torch.Generator().manual_seed(0))
+    assert sparse_conv.rulebook_conv_dw is conv_kernel.rulebook_conv_dw
+    calls = rec.calls['rulebook_conv_dw']
+    census = k5_census(calls, caps)
+    assert sum(c['launches'] for c in census) == len(calls) == 79
+    labels = {c['label']: c for c in census}
+    assert len(labels) == len(census) == 24
+    assert labels['L2 subm']['shape'] == (27, 4096, 96, 96)
+    assert labels['L2 subm']['launches'] == 7
+    assert labels['L0 input']['shape'] == (27, 16384, 6, 32)
+    assert labels['L5->L6 down/up']['launches'] == 2
+    assert labels['tiny L1 subm']['shape'] == (27, 1024, 64, 64)
+    cases = k5_args(calls, caps)
+    assert len(cases) == 7
+    feats, g, rules = cases['L1 subm 64->64']
+    assert rules.shape == (27, 8192) and feats.shape[1] == g.shape[1] == 64
+    assert cases['L5 tail 384->192'][0].shape[1] == 384

@@ -259,3 +259,76 @@ class TestGrouping:
                                  torch.ones(4, dtype=torch.bool),
                                  torch.zeros(4, dtype=torch.int32),
                                  torch.ones(1), 0.1, pair_keys=True)
+
+
+# The (K, V_out, Cin, Cout) of the 79 K5 calls of one all-params train step
+# of the flagship config (entry.train_cfg / train_capacities): every shape
+# once, and two edge shapes (one row; more 32-row steps than 65535).
+DW_STEP_SHAPES = [
+    (27, 131072, 32, 32), (27, 131072, 64, 32), (8, 32768, 32, 64),
+    (27, 32768, 64, 64), (27, 851968, 32, 32), (27, 851968, 64, 32),
+    (8, 425984, 32, 64), (27, 425984, 64, 64), (27, 425984, 128, 64),
+    (8, 131072, 64, 96), (27, 131072, 96, 96), (27, 131072, 192, 96),
+    (8, 65536, 96, 128), (27, 65536, 128, 128), (27, 65536, 256, 128),
+    (8, 16384, 128, 160), (27, 16384, 160, 160), (27, 16384, 320, 160),
+    (8, 8192, 160, 192), (27, 8192, 192, 192), (27, 8192, 384, 192),
+    (8, 4096, 192, 224), (27, 4096, 224, 224), (27, 851968, 6, 32),
+    (27, 1, 32, 32), (1, 32 * 70000 + 5, 32, 32)]
+
+
+@pytest.mark.parametrize('bf16', [True, False], ids=['bf16', 'f32'])
+@pytest.mark.parametrize('shape', DW_STEP_SHAPES,
+                         ids=[str(s) for s in DW_STEP_SHAPES])
+def test_dw_plan_covers_each_tap_and_step_once(shape, bf16):
+    """K5's grid plan (csrc/conv.cu sg_conv_dw): blocks (tap group y, z) of
+    a tile, block z taking steps z, z + split, ..., cover every (tap, step)
+    exactly once, every block has a step, grid.y and grid.z stay within
+    65535, and the grid is cut only as far as the fill asks."""
+    k, v_out, cin, cout = shape
+    group, split = ck._dw_plan(k, v_out, cin, cout, bf16)
+    rows = ck._DW_STEP_ROWS if bf16 else ck._DW_FMA_ROWS
+    n_steps = -(-v_out // rows)
+    groups = -(-k // group)
+    assert group == (ck._DW_GROUP if bf16 and n_steps > ck._DW_FEW_STEPS
+                     else 1)
+    assert 1 <= split <= min(n_steps, 65535) and groups <= 65535
+    seen = np.zeros((k, n_steps), np.int64)
+    for y in range(groups):
+        for z in range(split):
+            steps = np.arange(z, n_steps, split)
+            assert len(steps) > 0
+            seen[y * group:min(k, (y + 1) * group), steps] += 1
+    assert (seen == 1).all()
+    ti, tj = (32 if cin <= 32 else 64), (32 if cout <= 32 else 64)
+    base = groups * -(-cin // ti) * -(-cout // tj)
+    fill = (ck._DW_FMA_FILL_BLOCKS if not bf16 else ck._DW_WIDE_FILL_BLOCKS
+            if group > 1 and ti == tj == 64 else ck._DW_FILL_BLOCKS)
+    if split > 1:   # cut only as far as the grid needs
+        assert (split - 1) * base < fill
+
+
+@pytest.mark.parametrize('strided,d,v_out,cin,cout', [
+    (False, 20, 65536, 32, 32), (True, 10, 16384, 32, 64),
+    (False, 20, 256, 6, 32), (False, 20, 256, 64, 32),
+    (True, 10, 128, 96, 64)])
+def test_keyed_conv_split_is_k1_step_list(strided, d, v_out, cin, cout):
+    """K4 runs K1's kernel, so its bf16 split is K1's step-list rule (a
+    tile's steps of 32 channels of (hit tap, chunk) pieces), for a grid of
+    about _K4_FILL_BLOCKS; it may exceed the tap count.  f32 keeps the
+    tap-range rule of the FMA kernel."""
+    k = 8 if strided else 27
+    pw = 16 if cin <= 16 else 32
+    steps = -(-k * -(-cin // pw) // (32 // pw))
+    tiles = -(-v_out // 64) * -(-cout // (32 if cout <= 32 else 64))
+    fill = ck._K4_FILL_BLOCKS
+    want = 1 if tiles >= fill else min(steps, -(-fill // tiles))
+    assert ck._conv_split(k, cin, v_out, cout, torch.bfloat16, fill) == want
+    f32 = ck._conv_split(k, cin, v_out, cout, torch.float32)
+    assert 1 <= f32 <= k
+    if tiles < 8:   # few tiles: every step its own block
+        assert want == steps
+        if cin > 32:
+            assert want > k >= f32
+    # the flagship request's two K4 convs fill the card without a split
+    if v_out in (65536, 16384):
+        assert want == 1
