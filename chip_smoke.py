@@ -93,7 +93,10 @@ def profile(fn, label: str, card: str) -> None:
             'K4 rulebook_conv_tc<KeyedSlab>': ('rulebook_conv_tc',
                                                'KeyedSlab'),
             'K5 conv_dw_tc': ('conv_dw_tc',),
-            'split slab sums (sum_partials)': ('sum_partials',)}
+            'split slab sums (sum_partials)': ('sum_partials',),
+            'K6 segment_sum_chunks': ('segment_sum_chunks',),
+            'K6 segment_sum_spans': ('segment_sum_spans',),
+            'K7 rules_join': ('rules_join',)}
     log('[profile]   by kernel: ' + ', '.join(
         f'{name} {sum(r[0] for r in rows if all(w in r[2] for w in ws)):.3f}'
         f' ms in {sum(r[1] for r in rows if all(w in r[2] for w in ws))}'
@@ -127,7 +130,8 @@ def main() -> int:
         from softgroup_tpu_torch.ops import rulebook, sparse_conv
         from softgroup_tpu_torch.time_kernels import (
             Recorder, bound, cuda_ms, device_ms, dw_bound, host_us, k4_args,
-            k5_args, nbytes, pick)
+            k5_args, k6_trained_fill, k7_trained_fill, nbytes, pick,
+            rules_bound, segsum_bound)
     except ImportError as e:
         print(f'chip_smoke: the port is not importable here: {e}',
               file=sys.stderr)
@@ -355,52 +359,86 @@ def main() -> int:
         if label.startswith('L0 subm'):
             dw_case(f'{label} f32', args, torch.float32)
 
-    def segsum_case(label, args):
+    def segsum_check(values, seg, s):
+        """K6 held per element to the plain f32 sum, with no floor on the
+        scale, so a kernel that writes zeros or loses a run fails whatever
+        the size of the gradients: f32 output within 1e-5 x max|plain|;
+        bf16 output within half a bf16 ulp of each f32 sum (2^-8 x |plain|,
+        one rounding) + 1e-5 x max|plain| (the sum's order).  Returns the
+        max abs error against the plain version in out's dtype, the worst
+        error over its bound, and the bound as text."""
+        def check(got, want):
+            ref = gk.sorted_segment_sum_plain(values, seg, s).double()
+            scale = float(ref.abs().max()) if ref.numel() else 0.0
+            err = float((got.double() - want.double()).abs().max()) \
+                if got.numel() else 0.0
+            diff = (got.double() - ref).abs()
+            if got.dtype == torch.float32:
+                bound = torch.full_like(ref, 1e-5 * scale)
+                text = f'{1e-5 * scale:.6g}'
+            else:
+                bound = 2.0 ** -8 * ref.abs() + 1e-5 * scale
+                text = f'2^-8 x |plain| + {1e-5 * scale:.6g} each element'
+            worst = float((diff / bound.clamp_min(1e-30)).max()) \
+                if got.numel() else 0.0
+            return err, worst, text
+        return check
+
+    def segsum_case(label, args, kw):
         values, seg, s = args
         ok = (seg >= 0) & (seg < s)
         seg_l, vals_f = seg[ok].long(), values[ok].float()
+        out_dtype = kw.get('out_dtype', torch.float32)
         cases.append(dict(
             name=f'K6 sorted_segment_sum {label}',
             key='sorted_segment_sum', route='cuda',
             source='softgroup_tpu_torch/csrc/gather.cu',
             replaces='softgroup_tpu/ops/gather_kernel.py:149',
-            fn=lambda: gk.sorted_segment_sum(values, seg, s),
-            plain=lambda: gk.sorted_segment_sum_plain(values, seg, s),
+            fn=lambda: gk.sorted_segment_sum(values, seg, s, **kw),
+            plain=lambda: gk.sorted_segment_sum_plain(values, seg, s, **kw),
             library=lambda: torch.zeros(
                 (s, values.shape[1]), dtype=torch.float32,
                 device=values.device).index_add_(0, seg_l, vals_f),
-            tol_rel=1e-5,
-            reason=('f32 sums of a few rows in index order vs the plain '
-                    "index_add_'s atomics: 1e-5 x max|plain|"),
-            bound=bound(nbytes(values, seg) + s * values.shape[1] * 4, 0.0,
-                        values.dtype)))
+            check=segsum_check(values, seg, s),
+            reason=('f32 sums in another order than the plain '
+                    "index_add_'s atomics: 1e-5 x max|plain|"
+                    if out_dtype == torch.float32 else
+                    'f32 sums in another order, each rounded once to bf16: '
+                    'per element, 2^-8 x |plain f32 sum| + 1e-5 x '
+                    'max|plain|'),
+            bound=segsum_bound(values, seg, s, out_dtype)))
 
-    segsum_case(f'devoxelize backward ({tcaps.points}, 32) bf16', pick(
-        segsum_calls, lambda a, k: a[0].dtype == torch.bfloat16
-        and a[0].shape[1] == 32, 'devoxelize backward')[0])
-    segsum_case('proposal-gather backward (S, 35) f32', pick(
-        segsum_calls, lambda a, k: a[0].shape[1] == 35,
-        'proposal-gather backward')[0])
-    mask_bwd = pick(segsum_calls, lambda a, k: a[0].shape[1] == 19,
-                    'mask-gather backward')[0]
+    def segsum_pick(width, what):
+        return pick(segsum_calls, lambda a, k: a[0].shape[1] == width, what)
+
+    args, kw = segsum_pick(32, 'devoxelize backward')
+    segsum_case(f'devoxelize backward ({tcaps.points}, 32) bf16', args, kw)
+    args, kw = segsum_pick(35, 'proposal-gather backward')
+    segsum_case('proposal-gather backward (S, 35) f32', args, kw)
+    args, kw = segsum_pick(19, 'mask-gather backward')
     segsum_case(f'mask-gather backward (S, 19) '
-                f'{str(mask_bwd[0].dtype).split(".")[-1]}', mask_bwd)
+                f'{str(args[0].dtype).split(".")[-1]}', args, kw)
+    # a trained model's fill: runs of 1-16 rows, no dustbin (the mask
+    # gather's backward at a trained model's proposal counts)
+    segsum_case('trained fill (524288, 19) bf16', k6_trained_fill(dev),
+                {'out_dtype': torch.bfloat16})
 
-    for m_ in tcaps.inst_voxels:
-        rkeys, rxyz, rdims, roffs = pick(
-            rules_calls, lambda a, k: a[0].shape[0] == m_, f'K7 m={m_}')[0]
+    def rules_case(label, args):
         cases.append(dict(
-            name=f'K7 sorted_key_rules_join m={m_}',
+            name=f'K7 sorted_key_rules_join {label}',
             key='sorted_key_rules_join', route='cuda',
             source='softgroup_tpu_torch/csrc/join.cu',
             replaces='softgroup_tpu/ops/join_kernel.py:225',
-            fn=lambda a=(rkeys, rxyz, rdims, roffs):
-                jk.sorted_key_rules_join(*a),
-            plain=lambda a=(rkeys, rxyz, rdims, roffs):
-                jk.sorted_key_rules_join_plain(*a),
+            fn=lambda: jk.sorted_key_rules_join(*args),
+            plain=lambda: jk.sorted_key_rules_join_plain(*args),
             library=None, tol_rel=0.0, reason='integer join: exact',
-            bound=bound(nbytes(rkeys, rxyz, rdims) + len(roffs) * m_ * 4,
-                        0.0, torch.float32)))
+            bound=rules_bound(args[0], args[1], args[2], len(args[3]))))
+
+    for m_ in tcaps.inst_voxels:
+        rules_case(f'm={m_}', pick(rules_calls, lambda a, k: a[0].shape[0]
+                                   == m_, f'K7 m={m_}')[0])
+    # a trained model's fill: every row a voxel of dense 20^3 grids
+    rules_case('trained fill m=131072', k7_trained_fill(dev))
     del rec, trec, out
 
     results = []
@@ -411,16 +449,23 @@ def main() -> int:
         if got.shape != want.shape or got.dtype != want.dtype:
             raise RuntimeError(f"{c['name']}: {got.shape}/{got.dtype} vs "
                                f"{want.shape}/{want.dtype}")
-        err = float((got.double() - want.double()).abs().max()) \
-            if got.numel() else 0.0
-        scale = float(want.double().abs().max()) if want.numel() else 0.0
-        tol = c['tol_rel'] * max(1.0, scale)
-        ok = err <= tol
+        if 'check' in c:
+            err, worst, tol = c['check'](got, want)
+            ok = worst <= 1.0
+            tol += f' (worst error / bound {worst:.3g})'
+        else:
+            err = float((got.double() - want.double()).abs().max()) \
+                if got.numel() else 0.0
+            scale = float(want.double().abs().max()) if want.numel() \
+                else 0.0
+            tol = c['tol_rel'] * max(1.0, scale)
+            ok = err <= tol
+            tol = f'{tol:.6g}'
         if not ok:
             log(f"[kernel] {c['name']}: max_abs_err={err:.6g} "
-                f"tol={tol:.6g} ({c['reason']}) [{card}] FAIL")
+                f"tol={tol} ({c['reason']}) [{card}] FAIL")
             raise RuntimeError(f"{c['name']} disagrees with its plain "
-                               f"version: {err} > {tol}")
+                               f"version: {err} beyond {tol}")
         ms = cuda_ms(c['fn'])
         dev_ms = device_ms(c['fn'])
         wrap_us = host_us(c['fn'])
@@ -429,7 +474,7 @@ def main() -> int:
         lib_ms = cuda_ms(lib) if lib else None
         lib_dev_ms = device_ms(lib) if lib else None
         bound_ms, bound_by = c['bound']
-        log(f"[kernel] {c['name']}: max_abs_err={err:.6g} tol={tol:.6g} "
+        log(f"[kernel] {c['name']}: max_abs_err={err:.6g} tol={tol} "
             f"({c['reason']}) device_ms={dev_ms:.6f} ms={ms:.6f} "
             f"host_us={wrap_us:.3f} plain_ms={plain_ms:.6f} "
             f"library_device_ms={lib_dev_ms} library_ms={lib_ms} "

@@ -19,7 +19,10 @@ K6 ``sorted_segment_sum`` replaces ``gather_kernel.py:_segsum_kernel``
 (driven by ``monotone_segment_sum``): the backward of ``gather_rows``, the
 gather of the training step (devoxelize, the proposal-entry gather, the
 mask gather), as the reference's ``_devox_vjp`` / ``gather_rows_segsum_vjp``
-backwards are.  Design note: ``csrc/gather.cu``.
+backwards are.  Its kernels write every row of the output (the wrapper
+allocates it without zeroing) and round the f32 sums once to ``out_dtype``,
+so the backward gets its gradient in the source's dtype without a cast
+pass.  Design note: ``csrc/gather.cu``.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor it takes the plain version below.
@@ -33,7 +36,11 @@ import torch
 
 from . import kernels
 
-_SEG_ROWS = 256   # csrc/gather.cu SEG_R: K6's rows per chunk
+_SEG_ROWS = 512   # K6's rows per chunk at most (fewer for rows over 80 bytes)
+# values of a K6 chunk: a block holds one in its 227 KB of shared memory,
+# beside its segs and partials
+_SEG_MAX_CHUNK_BYTES = 200 * 1024
+_SEG_TYPES = (torch.float32, torch.bfloat16)
 _INDEX_TYPES = (torch.int32, torch.int64)   # K2 reads these as they are
 _INT_MAX = 2 ** 31 - 1
 
@@ -80,22 +87,39 @@ row_gather.launches = 0
 
 
 def sorted_segment_sum_plain(values: torch.Tensor, seg: torch.Tensor,
-                             num_segments: int) -> torch.Tensor:
+                             num_segments: int,
+                             out_dtype: torch.dtype = torch.float32
+                             ) -> torch.Tensor:
     """Plain version of K6: ``index_add_`` in f32 over the in-range rows
-    (sequential in row order on the CPU)."""
+    (sequential in row order on the CPU), then one cast to ``out_dtype``."""
     ok = (seg >= 0) & (seg < num_segments)
     out = torch.zeros((num_segments,) + tuple(values.shape[1:]),
                       dtype=torch.float32, device=values.device)
-    return out.index_add_(0, seg[ok].long(), values[ok].float())
+    out.index_add_(0, seg[ok].long(), values[ok].float())
+    return out.to(out_dtype)
+
+
+def seg_rows_per_chunk(row_bytes: int) -> int:
+    """K6's rows per chunk (one chunk a block, staged in shared memory):
+    ``_SEG_ROWS`` for narrow rows, fewer (a multiple of 32, at least 32)
+    for wider rows, so a chunk stays within 40 KB."""
+    return min(_SEG_ROWS, max(32, 40960 // row_bytes // 32 * 32))
 
 
 def sorted_segment_sum(values: torch.Tensor, seg: torch.Tensor,
-                       num_segments: int) -> torch.Tensor:
+                       num_segments: int,
+                       out_dtype: torch.dtype = torch.float32
+                       ) -> torch.Tensor:
     """K6: values (N, C) bf16 or f32, seg (N,) NON-DECREASING ->
-    (num_segments, C) f32; rows with seg outside [0, num_segments) drop."""
+    (num_segments, C) of ``out_dtype`` (f32, or the values' dtype), summed
+    in f32 and rounded once; rows with seg outside [0, num_segments)
+    drop."""
+    if out_dtype not in (torch.float32, values.dtype):
+        raise ValueError(f'sorted_segment_sum: out must be float32 or the '
+                         f'values\' {values.dtype}, got {out_dtype}')
     if values.device.type == 'cpu':
-        return sorted_segment_sum_plain(values, seg, num_segments)
-    if values.dtype not in (torch.float32, torch.bfloat16):
+        return sorted_segment_sum_plain(values, seg, num_segments, out_dtype)
+    if values.dtype not in _SEG_TYPES:
         raise ValueError(f'sorted_segment_sum: values must be float32 or '
                          f'bfloat16, got {values.dtype}')
     if values.dim() != 2 or seg.shape != values.shape[:1]:
@@ -104,16 +128,24 @@ def sorted_segment_sum(values: torch.Tensor, seg: torch.Tensor,
     seg = seg.to(torch.int32).contiguous()
     kernels.require_cuda('sorted_segment_sum', values, seg)
     n, c = values.shape
-    out = torch.zeros((num_segments, c), dtype=torch.float32,
+    row_bytes = c * values.element_size()
+    rows = seg_rows_per_chunk(row_bytes)
+    if rows * row_bytes > _SEG_MAX_CHUNK_BYTES:
+        raise ValueError(f'sorted_segment_sum: rows of {row_bytes} bytes do '
+                         f'not fit a chunk in shared memory')
+    # every row is written by the kernels: no zeroing
+    out = torch.empty((num_segments, c), dtype=out_dtype,
                       device=values.device)
-    # per 256-row chunk: the partial sums of a segment crossing its first
-    # and its last row
-    parts = torch.empty((2, -(-n // _SEG_ROWS), c), dtype=torch.float32,
+    # per chunk: the partial sums of a segment crossing its first and its
+    # last row
+    parts = torch.empty((2, max(1, -(-n // rows)), c), dtype=torch.float32,
                         device=values.device)
     rc = kernels.entry('gather', 'sg_segment_sum')(
         values.data_ptr(), seg.data_ptr(), n, num_segments, c,
-        int(values.dtype == torch.bfloat16), out.data_ptr(),
-        parts[0].data_ptr(), parts[1].data_ptr(), kernels.stream(values.device))
+        int(values.dtype == torch.bfloat16),
+        int(out_dtype == torch.bfloat16), rows, out.data_ptr(),
+        parts[0].data_ptr(), parts[1].data_ptr(),
+        kernels.stream(values.device))
     kernels.check(rc, 'sorted_segment_sum')
     sorted_segment_sum.launches += 1
     return out
@@ -126,7 +158,9 @@ class _GatherRows(torch.autograd.Function):
     """``src[clamp(idx)]`` on K2; backward: the segment sum of the output
     cotangent over the clamped index on K6, after a stable sort of the
     index and a K2 gather of the cotangent rows unless the caller
-    guarantees a non-decreasing index."""
+    guarantees a non-decreasing index.  K6 writes the gradient in ``src``'s
+    dtype where it can (f32 or bf16: one rounding of the f32 sum, as the
+    reference's cast after its f32 sum), so no cast pass follows."""
 
     @staticmethod
     def forward(ctx, src, idx, sorted_idx):
@@ -144,7 +178,8 @@ class _GatherRows(torch.autograd.Function):
             seg, order = torch.sort(seg, stable=True)
             g = row_gather(g, order)
         g = g.reshape(g.shape[0], -1)
-        gv = sorted_segment_sum(g, seg, ctx.n_src)
+        gv = sorted_segment_sum(g, seg, ctx.n_src, out_dtype=(
+            ctx.dtype if ctx.dtype in _SEG_TYPES else torch.float32))
         return gv.reshape((ctx.n_src,) + ctx.tail).to(ctx.dtype), None, None
 
 

@@ -14,6 +14,8 @@ K7 ``sorted_key_rules_join`` replaces ``join_kernel.py:_rules_kernel``
 (driven by ``sorted_key_rules_join``), called from
 ``rulebook.build_subm_rules_linear`` for every tiny-U-Net level of the
 training step; its plain version is the reference's ``xla_rules_join``.
+A block of K7 takes a tile of rows, stages the one key window its queries
+can hit and searches it in shared memory (design note: ``csrc/join.cu``).
 """
 
 from __future__ import annotations
@@ -24,6 +26,14 @@ import torch
 from . import kernels
 
 INT_MAX = 2 ** 31 - 1
+# K7's rows a block (32, 64, 128 or 256; each block stages the key window
+# of its tile's queries); None, as the package leaves it: the largest that
+# leaves _K7_MIN_BLOCKS blocks (64 at m = 131072, 32 at m = 32768).  Only
+# the tile sweep (time_kernels --k7-tile) and the card tests set it, to
+# reach the tiles the path's sizes do not pick.
+_K7_TILE = None
+_K7_MIN_BLOCKS = 2048
+_K7_MAX_OFFSETS = 64   # csrc/join.cu RJ_MAX_OFF
 
 
 def radius_sq(radius: float) -> float:
@@ -118,28 +128,66 @@ def sorted_key_rules_join_plain(table_keys, xyz, dims, offs) -> torch.Tensor:
     return torch.where(hit, pc, -1).to(torch.int32)
 
 
+_offsets_on: dict = {}
+
+
+def _k7_tile(m: int) -> int:
+    """K7's rows a block for an m-row table: ``_K7_TILE`` if set, else the
+    largest of 256, 128, 64, 32 that leaves ``_K7_MIN_BLOCKS`` blocks (32
+    at least)."""
+    if _K7_TILE is not None:
+        return _K7_TILE
+    tile = 256
+    while tile > 32 and m // tile < _K7_MIN_BLOCKS:
+        tile //= 2
+    return tile
+
+
+def _device_offsets(offs, dev: torch.device) -> torch.Tensor:
+    """``offs`` as an (R, 3) int32 tensor on ``dev``, copied there once per
+    offset set (a copy a call costs K7 a host-to-device transfer)."""
+    a = np.ascontiguousarray(np.asarray(offs, np.int32))
+    key = (a.tobytes(), a.shape, dev)
+    t = _offsets_on.get(key)
+    if t is None:
+        t = _offsets_on[key] = torch.as_tensor(a, device=dev)
+    return t
+
+
 def sorted_key_rules_join(table_keys: torch.Tensor, xyz: torch.Tensor,
-                          dims: torch.Tensor, offs) -> torch.Tensor:
+                          dims: torch.Tensor, offs,
+                          stats: torch.Tensor | None = None) -> torch.Tensor:
     """K7: rules[r, i] = j with table_keys[j] == table_keys[i] + dlin(r)
     and the bounds test ``0 <= xyz[i] + offs[r] < dims`` passed, else -1.
 
     table_keys: (m,) int32 sorted linear keys ((b*d0 + x)*d1 + y)*d2 + z,
     INT_MAX padded; xyz (m, 3) int32 voxel coords; dims (3,) int32 tensor
     (stays on the device); offs (R, 3) integer offsets.  Returns (R, m)
-    int32, exact."""
+    int32, exact.  ``stats``: an optional zeroed (2,) int32 tensor on the
+    card that the kernel fills with its largest key window and the count of
+    queries it searched for in the table beyond the staged part (the
+    census of ``time_kernels``)."""
     if table_keys.device.type == 'cpu':
         return sorted_key_rules_join_plain(table_keys, xyz, dims, offs)
     dev = table_keys.device
     keys = table_keys.to(torch.int32).contiguous()
     xyz = xyz.to(torch.int32).contiguous()
     dm = dims.to(torch.int32).contiguous()
-    offs_t = torch.as_tensor(np.asarray(offs, np.int32), device=dev)
-    kernels.require_cuda('sorted_key_rules_join', keys, xyz, dm, offs_t)
+    offs_t = _device_offsets(offs, dev)
+    kernels.require_cuda('sorted_key_rules_join', keys, xyz, dm, offs_t,
+                         *(() if stats is None else (stats,)))
+    if stats is not None and (stats.dtype != torch.int32
+                              or stats.numel() < 2):
+        raise ValueError('sorted_key_rules_join: stats must be (2,) int32')
     m, n_off = keys.shape[0], offs_t.shape[0]
+    if n_off > _K7_MAX_OFFSETS:
+        raise ValueError(f'sorted_key_rules_join: at most {_K7_MAX_OFFSETS} '
+                         f'offsets, got {n_off}')
     out = torch.empty((n_off, m), dtype=torch.int32, device=dev)
     rc = kernels.entry('join', 'sg_rules_join')(
         keys.data_ptr(), xyz.data_ptr(), dm.data_ptr(), offs_t.data_ptr(),
-        n_off, m, out.data_ptr(), kernels.stream(dev))
+        n_off, m, _k7_tile(m), out.data_ptr(),
+        None if stats is None else stats.data_ptr(), kernels.stream(dev))
     kernels.check(rc, 'sorted_key_rules_join')
     sorted_key_rules_join.launches += 1
     return out

@@ -4,7 +4,8 @@ Each ``csrc/<name>.cu`` is compiled at first use with nvcc for Hopper
 (``-gencode arch=compute_90a,code=sm_90a``) into a shared library with a
 plain C interface, and loaded with ctypes.  Libraries land in
 ``softgroup_tpu_torch/build/`` under a name that carries a hash of the
-source, so an edited source is rebuilt and a stale library is never loaded.
+source and of the shared ``csrc/*.cuh`` headers, so an edited source or
+header is rebuilt and a stale library is never loaded.
 Nothing here runs at import time: the CPU tests import every module.
 
 Every C entry point launches on the stream it is given (the wrapper passes
@@ -44,10 +45,10 @@ SIGNATURES = {
                        _P, _P),
     },
     'gather': {'sg_row_gather': (_P, _P, _I, _I, _I, _LL, _P, _P),
-               'sg_segment_sum': (_P, _P, _LL, _I, _I, _I, _P, _P, _P,
-                                  _P)},
+               'sg_segment_sum': (_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P,
+                                  _P, _P)},
     'join': {'sg_cell_join': (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
-             'sg_rules_join': (_P, _P, _P, _P, _I, _I, _P, _P)},
+             'sg_rules_join': (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P)},
 }
 
 _libs: dict = {}
@@ -70,8 +71,12 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> tuple[str, str]:
     src = os.path.join(CSRC, f'{name}.cu')
-    with open(src, 'rb') as f:
-        digest = hashlib.sha1(f.read() + ' '.join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1(' '.join(NVCC_FLAGS).encode())
+    # the source and every shared header it may include
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith('.cuh'))
+    for path in [src] + [os.path.join(CSRC, h) for h in headers]:
+        with open(path, 'rb') as f:
+            digest.update(f.read())
     return src, os.path.join(BUILD, f'{name}-{digest.hexdigest()[:12]}.so')
 
 

@@ -1,16 +1,18 @@
 """Times of the port's kernels at the main paths' shapes on one card, and
 the timing and bound helpers ``chip_smoke.py`` uses.
 
-    python -m softgroup_tpu_torch.time_kernels [label] [--cases k1,k2,k4,k5]
-        [--fill N,...] [--dw-group G,...] [--dw-fill N,...]
+    python -m softgroup_tpu_torch.time_kernels [label]
+        [--cases k1,k2,k4,k5,k6,k7] [--fill N,...] [--dw-group G,...]
+        [--dw-fill N,...] [--k6-rows N,...] [--k7-tile T,...]
     PYTHONPATH=<other checkout> python softgroup_tpu_torch/time_kernels.py \\
         [label] [...]
 
 One 250k-point room (seed 0) goes through ``test_forward`` of the seeded
 flagship net (bf16, semantic head biased as in ``chip_smoke.py``) while the
-K1, K2 and K4 call sites record their arguments; with ``k5`` in
-``--cases``, one all-params train step of the flagship training config
-(4 x 250k-point rooms, seeds 200-203) records every K5 call.  Each case is
+K1, K2 and K4 call sites record their arguments; with ``k5``, ``k6`` or
+``k7`` in ``--cases``, one all-params train step of the flagship training
+config (4 x 250k-point rooms, seeds 200-203) records every K5, K6 and K7
+call.  Each case is
 then timed and printed as one line
 ``time_kernels <label> <case> device_ms=... ms=... host_us=...``:
   * device_ms: the kernels' own time a call (the profiler's CUDA time over
@@ -23,6 +25,13 @@ step's calls with its launches, share of rules that hit, ``device_ms``, the
 bound (``dw_bound``) and the error against the plain version, then the
 shapes ranked by launches x ``device_ms``.  K4's subm case is timed once
 more with two equal key tables (the search over the whole table).
+K6 and K7 are timed as censuses too: one line per call of the step (K6:
+shape, types, longest run, share of rows in runs longer than a chunk; K7:
+m, share of valid keys, largest staged key window, queries searched in the
+table beyond it), each with ``device_ms``, bound and error against plain,
+plus one synthetic case each at a trained model's fill
+(``k6_trained_fill``, ``k7_trained_fill``); ``--k6-rows`` / ``--k7-tile``
+re-time them at other rows per K6 chunk / rows per K7 tile.
 
 ``--fill`` times the deep K1 cases and K4's at several values of
 ``conv_kernel._K1_FILL_BLOCKS`` / ``_K4_FILL_BLOCKS`` (the grid size below
@@ -123,6 +132,23 @@ def device_ms(fn, reps: int = DEVICE_REPS, tries: int = 3) -> float:
         if total > 0:
             return total / reps
     raise RuntimeError(f'the profiler saw no device time in {tries} runs')
+
+
+def device_split(fn, reps: int = DEVICE_REPS) -> str:
+    """The device ms a call of each kernel of ``fn`` (profiler, ``reps``
+    calls), as ``name:ms,...`` with the names cut at their first '('."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return ','.join(f'{name.split("(")[0].split("<")[0].split(" ")[-1]}:'
+                    f'{ms / reps:.6f}'
+                    for ms, _, name in sorted(kernel_rows(prof), reverse=True))
 
 
 def host_us(fn, reps: int = 20) -> float:
@@ -289,6 +315,206 @@ def k5_args(calls: list, caps) -> dict:
     }
 
 
+# a K6 call of the flagship train step, by its width
+K6_SITES = {32: 'devoxelize backward', 35: 'proposal-gather backward',
+            19: 'mask-gather backward'}
+
+
+def segsum_bound(values, seg, num_segments, out_dtype=None):
+    """K6's bound: one read of values and seg, one write of the
+    (num_segments, C) output in ``out_dtype`` (f32 by default)."""
+    import torch
+    out_elt = torch.empty((), dtype=out_dtype or torch.float32).element_size()
+    return bound(nbytes(values, seg) + num_segments * values.shape[1]
+                 * out_elt, 0.0, values.dtype)
+
+
+def rules_bound(keys, xyz, dims, n_off: int):
+    """K7's bound: one read of keys, coords and dims, one write of the
+    (n_off, m) int32 rulebook."""
+    import torch
+    return bound(nbytes(keys, xyz, dims) + n_off * keys.shape[0] * 4, 0.0,
+                 torch.float32)
+
+
+def run_lengths(seg, chunk: int) -> tuple[int, float]:
+    """(the longest run of a sorted seg, the share of its rows in runs
+    longer than ``chunk`` rows)."""
+    import torch
+    if seg.numel() == 0:
+        return 0, 0.0
+    _, counts = torch.unique_consecutive(seg, return_counts=True)
+    return int(counts.max()), float(counts[counts > chunk].sum()) / seg.numel()
+
+
+def k6_trained_fill(device, n: int = 524288, c: int = 19,
+                    num_segments: int = 131072, seed: int = 0):
+    """K6 at a trained model's fill, as the mask-gather backward would see
+    it: (n, c) bf16 values in runs of 1-16 rows on a seeded random subset
+    of ``num_segments`` segments (no dustbin run).  Returns (values, seg,
+    num_segments)."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    lengths = rng.randint(1, 17, n)
+    ends = np.cumsum(lengths)
+    k = int(np.searchsorted(ends, n)) + 1
+    lengths = lengths[:k].copy()
+    lengths[-1] -= ends[k - 1] - n
+    seg = np.repeat(np.sort(rng.choice(num_segments, k, replace=False)),
+                    lengths).astype(np.int32)
+    vals = rng.randn(n, c).astype(np.float32)
+    return (torch.from_numpy(vals).to(device).bfloat16(),
+            torch.from_numpy(seg).to(device), num_segments)
+
+
+def k7_trained_fill(device, m: int = 131072, d: int = 20):
+    """K7 at a trained model's fill: every row a valid key of dense d^3
+    proposal grids (m / d^3 grids, the last one partly filled), with its
+    coords, the grid's dims and the 26 non-centre offsets, as
+    ``rulebook.build_subm_rules_linear`` passes them."""
+    import numpy as np
+    import torch
+
+    from softgroup_tpu_torch.ops import rulebook
+    keys = np.arange(m, dtype=np.int64)
+    r = keys % d ** 3
+    xyz = np.stack([r // d ** 2, (r // d) % d, r % d], 1)
+    return (torch.from_numpy(keys.astype(np.int32)).to(device),
+            torch.from_numpy(xyz.astype(np.int32)).to(device),
+            torch.tensor([d, d, d], dtype=torch.int32, device=device),
+            rulebook._NON_CENTER)
+
+
+def k6_census(calls: list, lbl: str, card: str, rows_caps: list,
+              device_only: bool = False, device: str = 'cuda') -> None:
+    """Times every recorded K6 call of one train step, and the trained-fill
+    case: one line each with its shape and types, longest run, share of
+    rows in runs longer than a chunk, device ms, bound and error against
+    the plain version; the backward's K6 with its cast to the gradient's
+    dtype (``tail``); with an ``out_dtype`` argument, the f32 output too.
+    Then the sum of launches x device ms over the step's calls."""
+    import inspect
+
+    import torch
+
+    from softgroup_tpu_torch.ops import gather_kernel as gk
+    has_out = 'out_dtype' in inspect.signature(
+        gk.sorted_segment_sum).parameters
+    # the cap on the rows per chunk, where the package's K6 reads it
+    rows0 = getattr(gk, '_SEG_ROWS', None) \
+        if hasattr(gk, 'seg_rows_per_chunk') else None
+    cases = [(K6_SITES.get(a[0].shape[1], f'C={a[0].shape[1]}'), a, kw, 1)
+             for a, kw in calls]
+    syn = k6_trained_fill(device)
+    cases.append(('trained fill', syn,
+                  {'out_dtype': torch.bfloat16} if has_out else {}, 0))
+    for cap in rows_caps:
+        if cap is not None and rows0 is None:
+            continue   # a constant this package does not have
+        if cap is not None:
+            gk._SEG_ROWS = cap
+        tag = f' rows_cap={cap}' if cap is not None else ''
+        total = 0.0
+        for label, (vals, seg, s), kw, launches in cases:
+            n, c = vals.shape
+            chunk = gk.seg_rows_per_chunk(c * vals.element_size()) \
+                if hasattr(gk, 'seg_rows_per_chunk') else 256
+            longest, share = run_lengths(seg, chunk)
+            want = gk.sorted_segment_sum_plain(vals, seg, s).double()
+            scale = float(want.abs().max()) or 1.0   # no floor: relative
+            runs = [(f'out={str(kw.get("out_dtype", torch.float32))[6:]}',
+                     kw)]
+            if has_out and kw.get('out_dtype', torch.float32) \
+                    != torch.float32:
+                runs.append(('out=float32', {}))
+            for j, (what, kw_) in enumerate(runs):
+                got = gk.sorted_segment_sum(vals, seg, s, **kw_).double()
+                rel = float((got - want).abs().max()) / scale
+                b_ms, b_by = segsum_bound(vals, seg, s, kw_.get('out_dtype'))
+                dev = _timed(
+                    lbl, f'K6 census {label} ({n}, {c}) '
+                    f'{str(vals.dtype)[6:]} {what}{tag}',
+                    lambda v=vals, g=seg, s_=s, k=kw_:
+                    gk.sorted_segment_sum(v, g, s_, **k), card,
+                    f' launches={launches if j == 0 else 0} segments={s} '
+                    f'chunk={chunk} longest_run={longest} '
+                    f'rows_in_runs_over_a_chunk={share:.4f} '
+                    f'bound_ms={b_ms:.6f} ({b_by}) rel_err={rel:.3g}'
+                    + ('' if device == 'cpu' else ' kernels=' + device_split(
+                        lambda v=vals, g=seg, s_=s, k=kw_:
+                        gk.sorted_segment_sum(v, g, s_, **k))),
+                    device_only)
+                if j == 0:
+                    total += launches * dev
+            _timed(lbl, f'K6 census {label} tail (K6 + cast to '
+                   f'{str(vals.dtype)[6:]}){tag}',
+                   lambda v=vals, g=seg, s_=s, k=kw:
+                   gk.sorted_segment_sum(v, g, s_, **k).to(v.dtype), card,
+                   device_only=True)
+        print(f'time_kernels {lbl} K6 census{tag}: '
+              f'{sum(c[3] for c in cases)} launches, sum of launches x '
+              f'device_ms = {total:.6f} ms [{card}]', flush=True)
+    if rows0 is not None:
+        gk._SEG_ROWS = rows0
+
+
+def k7_census(calls: list, lbl: str, card: str, tiles: list,
+              device_only: bool = False, device: str = 'cuda') -> None:
+    """Times every recorded K7 call of one train step, and the trained-fill
+    case: one line each with m, the share of valid keys, the largest
+    staged key window and the queries searched in the table beyond it
+    (where the package's K7 counts them), device ms, bound and whether it
+    equals the plain version.  Then the sum of launches x device ms."""
+    import inspect
+
+    import torch
+
+    from softgroup_tpu_torch.ops import join_kernel as jk
+    has_stats = 'stats' in inspect.signature(
+        jk.sorted_key_rules_join).parameters
+    has_tile = hasattr(jk, '_K7_TILE')
+    tile0 = getattr(jk, '_K7_TILE', None)
+    cases = [(f'm={a[0].shape[0]}', a, 1) for a, _ in calls]
+    cases.append(('trained fill m=131072', k7_trained_fill(device), 0))
+    for tile in tiles:
+        if tile is not None and not has_tile:
+            continue
+        if tile is not None:
+            jk._K7_TILE = tile
+        tag = f' tile={tile}' if tile is not None else ''
+        total = 0.0
+        for label, a, launches in cases:
+            keys, xyz, dims, offs = a
+            want = jk.sorted_key_rules_join_plain(*a)
+            stats = torch.zeros(2, dtype=torch.int32, device=device)
+            got = jk.sorted_key_rules_join(
+                *a, **({'stats': stats} if has_stats else {}))
+            equal = torch.equal(got, want)
+            window, searched = ((int(v) for v in stats.cpu()) if has_stats
+                                else ('n/a', 'n/a'))
+            valid = float((keys != 2 ** 31 - 1).float().mean())
+            b_ms, b_by = rules_bound(keys, xyz, dims, len(offs))
+            dev = _timed(
+                lbl, f'K7 census {label}{tag}',
+                lambda a_=a: jk.sorted_key_rules_join(*a_), card,
+                f' launches={launches} valid_keys={valid:.4f} '
+                f'largest_window={window} searched_in_table={searched} '
+                f'hits={int((want >= 0).sum())} bound_ms={b_ms:.6f} '
+                f'({b_by}) equal={equal}'
+                + ('' if device == 'cpu' else ' kernels=' + device_split(
+                    lambda a_=a: jk.sorted_key_rules_join(*a_))),
+                device_only)
+            if not equal:
+                raise RuntimeError(f'K7 {label}: differs from plain')
+            total += launches * dev
+        print(f'time_kernels {lbl} K7 census{tag}: '
+              f'{sum(c[2] for c in cases)} launches, sum of launches x '
+              f'device_ms = {total:.6f} ms [{card}]', flush=True)
+    if has_tile:
+        jk._K7_TILE = tile0
+
+
 def _timed(label, name, fn, card, extra='', device_only=False):
     dev = device_ms(fn)
     more = '' if device_only else \
@@ -301,7 +527,7 @@ def _timed(label, name, fn, card, extra='', device_only=False):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument('label', nargs='?', default='')
-    ap.add_argument('--cases', default='k1,k2,k4,k5',
+    ap.add_argument('--cases', default='k1,k2,k4,k5,k6,k7',
                     help='comma-separated kernel families to time')
     ap.add_argument('--fill', default='',
                     help='comma-separated _K1_FILL_BLOCKS values to time the '
@@ -315,8 +541,15 @@ def main() -> None:
     ap.add_argument('--shapes', default='',
                     help='comma-separated labels of the census shapes to '
                          'time (all by default)')
+    ap.add_argument('--k6-rows', default='',
+                    help='comma-separated caps on K6\'s rows per chunk '
+                         '(gather_kernel._SEG_ROWS) to time its census at')
+    ap.add_argument('--k7-tile', default='',
+                    help='comma-separated K7 tile sizes '
+                         '(join_kernel._K7_TILE) to time its census at')
     ap.add_argument('--device-only', action='store_true',
-                    help='time the K5 census on device time alone')
+                    help='time the K5, K6 and K7 censuses on device time '
+                         'alone')
     args = ap.parse_args()
     families = set(args.cases.split(','))
     import numpy as np
@@ -328,7 +561,8 @@ def main() -> None:
     from softgroup_tpu_torch.model import softgroup as sg
     from softgroup_tpu_torch.ops import conv_kernel as ck
     from softgroup_tpu_torch.ops import gather_kernel as gk
-    from softgroup_tpu_torch.ops import grouping, kernels, sparse_conv
+    from softgroup_tpu_torch.ops import (grouping, kernels, rulebook,
+                                         sparse_conv)
     if not torch.cuda.is_available():
         raise SystemExit('time_kernels: needs a CUDA card')
     kernels.build_all()
@@ -397,7 +631,13 @@ def main() -> None:
         ck._K1_FILL_BLOCKS = fill0
         del rec, cases, net, batch
 
-    if 'k5' in families:
+    def values(opt):
+        return [int(x) for x in opt.split(',') if x] or [None]
+
+    train_sites = {'k5': (sparse_conv, 'rulebook_conv_dw'),
+                   'k6': (gk, 'sorted_segment_sum'),
+                   'k7': (rulebook, 'sorted_key_rules_join')}
+    if families & set(train_sites):
         tcfg, tcaps = entry.train_cfg(), entry.train_capacities()
         scenes = [make_room_scene(np.random.RandomState(200 + j),
                                   n_points=250000, n_instances=12)
@@ -405,19 +645,27 @@ def main() -> None:
         tbatch = entry.build_train_batch(scenes, tcfg, tcaps)
         state = entry.build_train_state(
             lift(entry.build_net(tcfg, seed=0, device='cuda')), tcfg, tcaps)
-        with Recorder([(sparse_conv, 'rulebook_conv_dw')]) as trec:
+        with Recorder([site for f, site in train_sites.items()
+                       if f in families]) as trec:
             state.step(tbatch, generator=torch.Generator().manual_seed(0))
             torch.cuda.synchronize()
         del state, tbatch
         torch.cuda.empty_cache()
-        census = k5_census(trec.calls['rulebook_conv_dw'], tcaps)
+        tcalls = trec.calls
+        del trec
+
+    if 'k6' in families:
+        k6_census(tcalls['sorted_segment_sum'], lbl, card,
+                  values(args.k6_rows), args.device_only)
+    if 'k7' in families:
+        k7_census(tcalls['sorted_key_rules_join'], lbl, card,
+                  values(args.k7_tile), args.device_only)
+
+    if 'k5' in families:
+        census = k5_census(tcalls['rulebook_conv_dw'], tcaps)
         if args.shapes:
             census = [c for c in census
                       if c['label'] in args.shapes.split(',')]
-        del trec
-
-        def values(opt):
-            return [int(x) for x in opt.split(',') if x] or [None]
         group0 = getattr(ck, '_DW_GROUP', None)
         few0 = getattr(ck, '_DW_FEW_STEPS', None)
         fill0 = getattr(ck, '_DW_FILL_BLOCKS', None)

@@ -311,9 +311,93 @@ def test_sorted_segment_sum(dev, dtype, c):
         1e-5 * max(1.0, float(want.abs().max()))
 
 
+def _segsum_input(case: str, c: int, dtype, dev):
+    """(values, seg, num_segments) of one K6 card case; the chunk is
+    ``gk.seg_rows_per_chunk`` rows (256 at these widths)."""
+    rng = np.random.RandomState(len(case) * 100 + c)
+    rows = gk.seg_rows_per_chunk(c * torch.tensor([], dtype=dtype)
+                                 .element_size())
+    if case == 'span':          # one run over many chunks, short runs around
+        n, s = 20 * rows + 77, 5000
+        seg = np.sort(rng.randint(0, s, n))
+        seg[3 * rows + 5:15 * rows + 9] = seg[3 * rows + 5]
+    elif case == 'chunk edge':  # runs that end exactly on chunk edges: one
+        n, s = 8 * rows, 3000   # chunk long, two chunks long, half a chunk
+        seg = np.repeat(np.arange(0, 8 * 37, 37), rows)
+        seg[2 * rows:4 * rows] = 74
+        seg[:rows // 2] = 0
+        seg[rows // 2:rows] = 1
+    elif case == 'gaps':        # empty segments between runs, the first and
+        n, s = 9000, 40000      # last rows of out empty
+        seg = np.sort(rng.choice(np.arange(5, s - 7), 700, replace=False))
+        seg = np.repeat(seg, rng.randint(1, 25, 700))[:n]
+        n = len(seg)
+    elif case == 'out of range':  # every row below 0 or at or beyond s
+        n, s = 3000, 2000
+        seg = np.sort(np.concatenate([rng.randint(-40, 0, 1000),
+                                      rng.randint(s, s + 50, 2000)]))
+    elif case == 'unaligned':   # values 1 element off 16-byte alignment:
+        n, s = 5000, 3000       # no 16-byte column vectors, a scalar head
+        seg = np.sort(rng.randint(0, s, n))
+        vals = torch.from_numpy(rng.randn(n * c + 1).astype(np.float32))
+        vals = vals.to(dev).to(dtype)[1:].view(n, c)
+        assert vals.data_ptr() % 16 != 0
+        return vals, torch.from_numpy(seg.astype(np.int32)).to(dev), s
+    elif case == 'small':       # fewer rows than a chunk, not a multiple
+        n, s = rows - (59 if rows > 64 else 7), 300   # of anything;
+        # out-of-range rows at both ends
+        seg = np.sort(rng.randint(-5, s + 5, n))
+    else:
+        raise ValueError(case)
+    vals = torch.from_numpy(rng.randn(n, c).astype(np.float32)).to(dev)
+    return (vals.to(dtype), torch.from_numpy(seg.astype(np.int32)).to(dev),
+            s)
+
+
+@pytest.mark.parametrize('dtype,out_dtype', [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+    (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize('c', [19, 32, 35, 300, 301])
+@pytest.mark.parametrize('case', ['span', 'chunk edge', 'gaps',
+                                  'out of range', 'unaligned', 'small'])
+def test_sorted_segment_sum_cases(dev, case, c, dtype, out_dtype):
+    """K6 against its plain version: a run over many chunks, runs ending on
+    a chunk edge, empty segments between runs with out's first and last
+    rows empty, every row out of range, values off 16-byte alignment (no
+    16-byte column vectors), and fewer rows than a chunk.  The path's
+    widths (19, 32, 35) and two over 256 columns: 300 (75 f32 column
+    vectors a row) and 301 (one strip a chunk, a thread every 256th
+    column); over 256 columns a span is finished by one thread a column.
+    The kernel writes every row of out itself: the memory handed back for
+    out was NaN just before the call.  Two calls are bitwise equal, and the
+    bf16 output is the f32 output rounded once."""
+    vals, seg, s = _segsum_input(case, c, dtype, dev)
+    nan = torch.full((s, c), float('nan'), dtype=out_dtype, device=dev)
+    del nan             # the caching allocator hands this block back
+    got = gk.sorted_segment_sum(vals, seg, s, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == (s, c)
+    assert torch.equal(got, gk.sorted_segment_sum(vals, seg, s,
+                                                  out_dtype=out_dtype))
+    want = gk.sorted_segment_sum_plain(vals, seg, s).double()
+    scale = max(1.0, float(want.abs().max()))
+    err = (got.double() - want).abs()
+    if out_dtype == torch.float32:
+        assert float(err.max()) <= 1e-5 * scale
+    else:   # one bf16 rounding of an f32 sum in another order
+        assert bool((err <= 2.0 ** -8 * want.abs() + 1e-5 * scale).all())
+        f32 = gk.sorted_segment_sum(vals, seg, s)
+        assert torch.equal(got, f32.to(torch.bfloat16))
+    if case == 'out of range':
+        assert not got.any()
+    if case == 'gaps':
+        assert not got[:5].any() and not got[-7:].any()
+
+
 def test_gather_rows_backward(dev):
     """The differentiable gather on K2 + K6 (sorted and unsorted index)
-    against autograd of plain indexing."""
+    against the exact (f64) sum of the cotangent rows: the sorted index's
+    last row sums ~1250 rows, where two f32 sums in different orders (an
+    f32 index_add_'s atomics) are 1e-4 apart in ~7% of draws."""
     src = torch.randn(3000, 35, device=dev, requires_grad=True)
     for idx, srt in ((torch.randint(0, 3000, (20000,), device=dev), False),
                      (torch.sort(torch.randint(0, 3200, (20000,),
@@ -321,8 +405,9 @@ def test_gather_rows_backward(dev):
         g = torch.randn(20000, 35, device=dev)
         src.grad = None
         gk.gather_rows(src, idx, sorted_idx=srt).backward(g)
-        want = torch.zeros_like(src).index_add_(0, idx.clamp(max=2999), g)
-        assert float((src.grad - want).abs().max()) <= 1e-4
+        want = torch.zeros_like(src, dtype=torch.float64).index_add_(
+            0, idx.clamp(max=2999), g.double())
+        assert float((src.grad.double() - want).abs().max()) <= 1e-4
 
 
 def test_rules_join_exact(dev):
@@ -344,6 +429,76 @@ def test_rules_join_exact(dev):
     assert torch.equal(got, jk.sorted_key_rules_join_plain(*args, dims,
                                                            offs))
     assert int((got >= 0).sum()) > 10000
+
+
+def _rules_input(case: str, dev):
+    """(keys, xyz, dims) of one K7 card case: sorted linear keys
+    ((b*d0 + x)*d1 + y)*d2 + z, INT_MAX padded."""
+    rng = np.random.RandomState(len(case))
+    d = (20, 20, 20)
+    if case == 'dense grids':      # every row a voxel of full 20^3 grids
+        key = np.arange(16 * 8000 + 3072)
+    elif case == 'sparse overflow':  # a 16 x 100 x 100 grid 90% full: a
+        d = (16, 100, 100)           # tile's window (dlin up to +-10101)
+        key = np.sort(rng.choice(160000, 144000, replace=False))
+    elif case == 'mixed':          # dense and sparse stretches, padding
+        dense = np.arange(4000, 12000)
+        sparse = rng.choice(np.arange(20000, 200000), 3000, replace=False)
+        key = np.concatenate([dense, np.sort(sparse)])
+    elif case == 'duplicate keys':  # the first of equal keys is the match
+        key = np.repeat(np.arange(0, 8000, 3), 3)
+    elif case == 'all padding':
+        key = np.zeros(0, np.int64)
+    elif case == 'one row':
+        key = np.array([8000 + 421])
+    elif case == 'int32 edge':     # queries beyond INT_MAX wrap, as in plain
+        key = np.sort(np.concatenate([
+            INT_MAX - 1 - rng.choice(5000, 3000, replace=False),
+            rng.choice(5000, 2000, replace=False) - 2 ** 31]))
+    else:
+        raise ValueError(case)
+    pad = {'dense grids': 0, 'all padding': 4099, 'one row': 0}.get(case,
+                                                                    1001)
+    keys = np.concatenate([key, np.full(pad, INT_MAX)]).astype(np.int64)
+    vol = d[0] * d[1] * d[2]
+    r = np.where(keys == INT_MAX, 0, keys) % vol
+    xyz = np.stack([r // (d[1] * d[2]), (r // d[2]) % d[1], r % d[2]], 1)
+    return (torch.from_numpy(keys.astype(np.int32)).to(dev),
+            torch.from_numpy(xyz.astype(np.int32)).to(dev),
+            torch.tensor(d, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize('tile', [32, 64, 128, 256])
+@pytest.mark.parametrize('case', ['dense grids', 'sparse overflow', 'mixed',
+                                  'duplicate keys', 'all padding', 'one row',
+                                  'int32 edge'])
+def test_rules_join_cases(dev, monkeypatch, case, tile):
+    """K7 equal to its plain version at every tile size: full 20^3 grids
+    (a trained model's fill), windows longer than the staged part (the
+    rest searched in the table: the census counts them), dense and sparse
+    stretches with m not a multiple of the tile, duplicate keys (the
+    index window does not hold the query range: the searched one does), an
+    all-padding table, m = 1, and keys at the int32 ends."""
+    monkeypatch.setattr(jk, '_K7_TILE', tile)
+    keys, xyz, dims = _rules_input(case, dev)
+    offs = np.delete(np.stack(np.meshgrid(*[np.arange(-1, 2)] * 3,
+                                          indexing='ij'), -1).reshape(-1, 3),
+                     13, axis=0)
+    stats = torch.zeros(2, dtype=torch.int32, device=dev)
+    got = jk.sorted_key_rules_join(keys, xyz, dims, offs, stats=stats)
+    want = jk.sorted_key_rules_join_plain(keys, xyz, dims, offs)
+    assert torch.equal(got, want)
+    hits = int((want >= 0).sum())
+    window, searched = (int(v) for v in stats.cpu())
+    if case == 'dense grids':
+        assert hits > 20 * keys.shape[0] and window <= tile + 842
+        assert searched == 0
+    if case == 'sparse overflow':
+        assert window > 4096 and searched > 0 and hits > 0
+    if case in ('all padding', 'one row'):
+        assert hits == 0 and searched == 0
+    if case == 'mixed':
+        assert keys.shape[0] % tile != 0 and hits > 0
 
 
 def _dw_rules(dev, k, v_in, v_out, seed):

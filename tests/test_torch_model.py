@@ -310,3 +310,55 @@ def test_time_kernels_finds_k5_cases():
     feats, g, rules = cases['L1 subm 64->64']
     assert rules.shape == (27, 8192) and feats.shape[1] == g.shape[1] == 64
     assert cases['L5 tail 384->192'][0].shape[1] == 384
+
+
+def test_time_kernels_k6_k7_census(monkeypatch, capsys):
+    """The K6 and K7 censuses of ``time_kernels`` on one recorded all-params
+    train step of the flagship training config (small capacities, plain
+    versions on the CPU, the timer stubbed): the three K6 call sites of
+    the step by width and the two K7 levels, each with its run or window
+    figures, plus the trained-fill cases: K6 runs of 1-16 rows and no
+    dustbin, K7 full 20^3 grids."""
+    from softgroup_tpu_torch import entry, time_kernels as tk
+    from softgroup_tpu_torch.data.synthetic import make_scene
+    from softgroup_tpu_torch.ops import gather_kernel, join_kernel, rulebook
+    from softgroup_tpu_torch.time_kernels import Recorder
+    caps = Capacities(
+        points=16384, voxels=(16384, 8192, 4096, 2048, 1024, 512, 256),
+        grouping_points=32768, proposals=32, proposal_entries=32768,
+        instances=32, inst_voxels=(4096, 1024), grouping_cells=4096)
+    cfg = entry.train_cfg()
+    net = entry.build_net(cfg, seed=1, device='cpu', bf16=True)
+    state = entry.build_train_state(net, cfg, caps)
+    batch = entry.build_train_batch(
+        [make_scene(np.random.RandomState(7), n_points=8000,
+                    n_instances=6)], cfg, caps, device='cpu')
+    with Recorder([(gather_kernel, 'sorted_segment_sum'),
+                   (rulebook, 'sorted_key_rules_join')]) as rec:
+        state.step(batch, generator=torch.Generator().manual_seed(0))
+    assert rulebook.sorted_key_rules_join is join_kernel.sorted_key_rules_join
+    seg_calls = rec.calls['sorted_segment_sum']
+    assert sorted(tk.K6_SITES[a[0].shape[1]] for a, _ in seg_calls) == [
+        'devoxelize backward', 'mask-gather backward',
+        'proposal-gather backward']
+    assert all(kw['out_dtype'] == a[0].dtype for a, kw in seg_calls
+               if a[0].dtype == torch.bfloat16)
+    monkeypatch.setattr(tk, '_timed', lambda *a, **k: 1.0)
+    tk.k6_census(seg_calls, 't', 'cpu', [None], device='cpu')
+    tk.k7_census(rec.calls['sorted_key_rules_join'], 't', 'cpu', [None],
+                 device='cpu')
+    out = capsys.readouterr().out
+    assert 'K6 census: 3 launches, sum of launches x device_ms = 3.0' in out
+    assert 'K7 census: 2 launches, sum of launches x device_ms = 2.0' in out
+    vals, seg, s = tk.k6_trained_fill('cpu')
+    longest, share = tk.run_lengths(seg, 256)
+    assert vals.shape == (524288, 19) and vals.dtype == torch.bfloat16
+    assert longest == 16 and share == 0.0 and s == 131072
+    assert bool((seg[1:] > seg[:-1]).sum() > 30000)
+    keys, xyz, dims, offs = tk.k7_trained_fill('cpu')
+    rules = join_kernel.sorted_key_rules_join_plain(keys, xyz, dims, offs)
+    assert keys.shape == (131072,) and len(offs) == 26
+    assert int((rules >= 0).sum()) > 20 * 131072
+    (b_ms, b_by) = tk.segsum_bound(vals, seg, s, torch.bfloat16)
+    assert b_by == 'bytes' and b_ms == pytest.approx(
+        (524288 * 19 * 2 + 524288 * 4 + 131072 * 19 * 2) / 3.35e12 * 1e3)

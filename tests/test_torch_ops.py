@@ -332,3 +332,25 @@ def test_keyed_conv_split_is_k1_step_list(strided, d, v_out, cin, cout):
     # the flagship request's two K4 convs fill the card without a split
     if v_out in (65536, 16384):
         assert want == 1
+
+
+@pytest.mark.parametrize('row_bytes,rows', [
+    (38, 512), (64, 512), (128, 320), (140, 288), (1024, 32), (3000, 32)])
+def test_segment_sum_chunk_rows(row_bytes, rows):
+    """K6's rows per chunk: at most ``_SEG_ROWS``, a multiple of 32 (at
+    least 32) that keeps a chunk within 40 KB of shared memory; the three
+    widths of the train step (19 bf16, 32 bf16, 35 f32) get 512, 512 and
+    288 rows."""
+    from softgroup_tpu_torch.ops import gather_kernel as gk
+    assert gk.seg_rows_per_chunk(row_bytes) == rows
+    assert rows % 32 == 0 and (rows == 32 or rows * row_bytes <= 40960)
+
+
+@pytest.mark.parametrize('m,tile', [(131072, 64), (32768, 32), (65536, 32),
+                                    (1 << 20, 256), (1, 32)])
+def test_rules_join_tile(m, tile):
+    """K7's tile: the largest of 256, 128, 64, 32 rows that leaves 2048
+    blocks, 32 at least (64 at the tiny U-Net's level 0, 32 at level 1)."""
+    from softgroup_tpu_torch.ops import join_kernel as jk
+    assert jk._k7_tile(m) == tile
+    assert tile == 32 or m // tile >= jk._K7_MIN_BLOCKS

@@ -174,6 +174,56 @@ def test_segment_sum_plain():
     assert (seg >= 256).sum() > 10 and (seg < 0).sum() > 0
 
 
+def _segsum_windows_fit(seg, num_segments, b=256, w=1024):
+    """True when every block of the JAX kernel finds its rows in its window
+    (``monotone_segment_sum`` takes its Pallas branch, not the fallback)."""
+    n = len(seg)
+    bounds = np.searchsorted(seg, np.arange(0, num_segments + b, b))
+    starts = np.clip(bounds[:-1], 0, max(n - w, 0)) // 128 * 128
+    return bool((bounds[1:] <= starts + w).all())
+
+
+@pytest.mark.parametrize('dtype,c', [('bfloat16', 19), ('float32', 35)])
+def test_segment_sum_vs_pallas(dtype, c):
+    """K6's plain version against the reference's Pallas kernel
+    (``monotone_segment_sum``, bf16; ``monotone_segment_sum_f32``, the
+    exact bf16x3 split, f32) in interpret mode, at a shape it takes (N %
+    128 == 0, S % 256 == 0, N >= 1024): out-of-range rows at both ends, a
+    400-row run, empty segments; the output in the values' dtype is the
+    f32 sum rounded once, and f32 values take no bf16 output."""
+    rng = np.random.RandomState(33)
+    n, s = 2048, 1024
+    seg = np.sort(np.concatenate([
+        rng.randint(-5, 0, 30), np.full(400, 300),
+        rng.choice(np.r_[0:300, 301:s], 1568), rng.randint(s, s + 20, 50)]))
+    seg = seg.astype(np.int32)
+    assert _segsum_windows_fit(seg, s)
+    vals = rng.randn(n, c).astype(np.float32)
+    if dtype == 'bfloat16':
+        jv = jnp.asarray(vals).astype(jnp.bfloat16)
+        ref = jgk.monotone_segment_sum(jv, jnp.asarray(seg), s,
+                                       interpret=True)
+        tv = _t(np.asarray(jv.astype(jnp.float32))).bfloat16()
+    else:
+        ref = jgk.monotone_segment_sum_f32(jnp.asarray(vals),
+                                           jnp.asarray(seg), s,
+                                           interpret=True)
+        tv = _t(vals)
+    ref = np.asarray(ref)
+    out = gk.sorted_segment_sum(tv, _t(seg), s)
+    assert out.dtype == torch.float32 and out.shape == (s, c)
+    _close_scaled(out, ref, 1e-5)
+    assert (ref == 0).all(axis=1).sum() > 100   # empty segments
+    same = gk.sorted_segment_sum(tv, _t(seg), s, out_dtype=tv.dtype)
+    assert same.dtype == tv.dtype
+    assert torch.equal(same, out.to(tv.dtype))
+    np.testing.assert_allclose(same.float().numpy(), ref,
+                               rtol=2.0 ** -8, atol=1e-5)
+    if tv.dtype == torch.float32:   # out is f32 or the values' dtype
+        with pytest.raises(ValueError):
+            gk.sorted_segment_sum(tv, _t(seg), s, out_dtype=torch.bfloat16)
+
+
 def test_devoxelize_backward(batches):
     tb, jb = batches
     rng = np.random.RandomState(31)
@@ -201,6 +251,39 @@ def test_unsorted_gather_backward():
     ref = jax.vjp(lambda a: jgk.gather_rows_segsum_vjp(a, jnp.asarray(idx)),
                   jnp.asarray(src))[1](jnp.asarray(g))[0]
     _close(st.grad, ref, 1e-5)
+
+
+@pytest.mark.parametrize('sorted_idx', [False, True])
+def test_gather_backward_bf16_vs_pallas(sorted_idx):
+    """``gather_rows``' backward on bf16 rows (K6 writing the gradient in
+    bf16, one rounding of the f32 sum) against ``jax.vjp`` of the
+    reference's gather with its Pallas backward (argsort, gather, the
+    segment-sum kernel) in interpret mode."""
+    from softgroup_tpu.ops import dispatch
+    rng = np.random.RandomState(34)
+    src = rng.randn(512, 19).astype(np.float32)
+    idx = rng.randint(0, 512, 2048).astype(np.int32)
+    if sorted_idx:
+        idx = np.sort(idx)
+    g = rng.randn(2048, 19).astype(np.float32)
+    js, jg = (jnp.asarray(a).astype(jnp.bfloat16) for a in (src, g))
+    dispatch.set_kernels(True)
+    dispatch.set_interpret(True)
+    try:
+        ref = jax.vjp(lambda a: jgk.gather_rows_segsum_vjp(
+            a, jnp.asarray(idx)), js)[1](jg)[0]
+    finally:
+        dispatch.set_kernels(None)
+        dispatch.set_interpret(None)
+    assert ref.dtype == jnp.bfloat16
+    st = _t(np.asarray(js.astype(jnp.float32))).bfloat16().requires_grad_(
+        True)
+    out = gk.gather_rows(st, _t(idx), sorted_idx=sorted_idx)
+    out.backward(_t(np.asarray(jg.astype(jnp.float32))).bfloat16())
+    assert st.grad.dtype == torch.bfloat16
+    np.testing.assert_allclose(st.grad.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)),
+                               rtol=2.0 ** -8, atol=1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -233,6 +316,34 @@ def test_rules_join_plain():
     out = jk.sorted_key_rules_join(keys, xyz, dims, offs)
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
     assert int((out >= 0).sum()) > 1000
+
+
+def test_rules_join_vs_pallas():
+    """K7 (its plain version on the CPU) against the reference's Pallas
+    rulebook join in interpret mode, on a table with dense tiles (two full
+    10^3 grids), sparse tiles and a padded tail."""
+    rng = np.random.RandomState(42)
+    d, m = 10, 4096
+    key = np.concatenate([np.arange(2000),
+                          np.sort(rng.choice(np.arange(2000, 40000), 1200,
+                                             replace=False))])
+    keys = np.full(m, INT_MAX, np.int32)
+    keys[:len(key)] = key
+    r = np.where(keys == INT_MAX, 0, keys) % d ** 3
+    xyz = np.stack([r // d ** 2, (r // d) % d, r % d], 1).astype(np.int32)
+    offs = tuple(map(tuple, np.delete(rb.SUBM_OFFSETS, rb.CENTER_TAP,
+                                      axis=0).tolist()))
+    dims = np.array([d, d, d], np.int32)
+    ref = jjk.sorted_key_rules_join(jnp.asarray(keys), jnp.asarray(xyz),
+                                    jnp.asarray(dims), offs, window_w=768,
+                                    interpret=True, force_kernel=True)
+    np.testing.assert_array_equal(
+        np.asarray(ref), np.asarray(jjk.xla_rules_join(
+            jnp.asarray(keys), jnp.asarray(xyz), jnp.asarray(dims), offs)))
+    out = jk.sorted_key_rules_join(_t(keys), _t(xyz), _t(dims), offs)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    assert int((out[:, :2000] >= 0).sum()) > 20 * 1500
+    assert int((out[:, 2000:] >= 0).sum()) > 0
 
 
 @pytest.mark.parametrize('cap', [1024, 4096], ids=['truncating', 'padded'])
