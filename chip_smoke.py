@@ -13,7 +13,9 @@ non-zero):
      (max-abs error, tolerance, the bound of the card) and timed: the
      kernel's and the library call's device time (``device_ms``,
      ``library_device_ms``: the profiler's device time over 20 calls, the
-     time kernels are ranked on), CUDA events around 10 back-to-back calls
+     time kernels are ranked on; ``partial_trace=True`` where the trace
+     stayed short of 20 x the kernels of one call after three tries), CUDA
+     events around 10 back-to-back calls
      of the kernel, the plain version and the library call (``ms``,
      ``plain_ms``, ``library_ms``: host gaps included), and the wrapper's
      host time a call (``host_us``);
@@ -96,7 +98,8 @@ def profile(fn, label: str, card: str) -> None:
             'split slab sums (sum_partials)': ('sum_partials',),
             'K6 segment_sum_chunks': ('segment_sum_chunks',),
             'K6 segment_sum_spans': ('segment_sum_spans',),
-            'K7 rules_join': ('rules_join',)}
+            'K7 rules_join': ('rules_join',),
+            'K3 cell_join': ('cell_join',)}
     log('[profile]   by kernel: ' + ', '.join(
         f'{name} {sum(r[0] for r in rows if all(w in r[2] for w in ws)):.3f}'
         f' ms in {sum(r[1] for r in rows if all(w in r[2] for w in ws))}'
@@ -129,9 +132,10 @@ def main() -> int:
         from softgroup_tpu_torch.ops import join_kernel as jk
         from softgroup_tpu_torch.ops import rulebook, sparse_conv
         from softgroup_tpu_torch.time_kernels import (
-            Recorder, bound, cuda_ms, device_ms, dw_bound, host_us, k4_args,
-            k5_args, k6_trained_fill, k7_trained_fill, nbytes, pick,
-            rules_bound, segsum_bound)
+            Recorder, bound, cell_join_bound, cuda_ms, device_reading,
+            dw_bound, host_us, k4_args, k5_args, k6_trained_fill,
+            k7_trained_fill, nbytes, pick, reading_text, rules_bound,
+            segsum_bound)
     except ImportError as e:
         print(f'chip_smoke: the port is not importable here: {e}',
               file=sys.stderr)
@@ -217,7 +221,8 @@ def main() -> int:
     state = train_state(())
     with Recorder([(sparse_conv, 'rulebook_conv_dw'),
                    (gk, 'sorted_segment_sum'),
-                   (rulebook, 'sorted_key_rules_join')]) as trec:
+                   (rulebook, 'sorted_key_rules_join'),
+                   (grouping, 'cell_neighbor_join')]) as trec:
         logs = state.step(train_batches[0][0],
                           generator=torch.Generator().manual_seed(0))
         torch.cuda.synchronize()
@@ -233,6 +238,7 @@ def main() -> int:
     dw_calls = trec.calls['rulebook_conv_dw']
     segsum_calls = trec.calls['sorted_segment_sum']
     rules_calls = trec.calls['sorted_key_rules_join']
+    train_join_calls = trec.calls['cell_neighbor_join']
 
     v0 = caps.voxels[0]
     cases = []
@@ -299,19 +305,24 @@ def main() -> int:
         gather_calls, lambda a, k: a[0].dim() == 1
         and a[0].shape[0] == caps.grouping_cells + 1, 'label gather')[0])
 
-    keys, cen, cc, dims, offs, radius = join_calls[0][0]
-    m = keys.shape[0]
-    cases.append(dict(
-        name=f'K3 cell_neighbor_join m={m}', key='cell_neighbor_join',
-        route='cuda', source='softgroup_tpu_torch/csrc/join.cu',
-        replaces='softgroup_tpu/ops/join_kernel.py:54',
-        fn=lambda: jk.cell_neighbor_join(keys, cen, cc, dims, offs, radius),
-        plain=lambda: jk.cell_neighbor_join_plain(keys, cen, cc, dims, offs,
-                                                  radius),
-        library=None, tol_rel=0.0,
-        reason='integer join, gate in the plain order without FMA: exact',
-        bound=bound(nbytes(keys, cen, cc, dims) + len(offs) * m * 4, 0.0,
-                    torch.float32)))
+    def join_case(args, path):
+        keys, cen, cc, dims, offs, radius = args
+        cases.append(dict(
+            name=f'K3 cell_neighbor_join m={keys.shape[0]}',
+            key='cell_neighbor_join', path=path, route='cuda',
+            source='softgroup_tpu_torch/csrc/join.cu',
+            replaces='softgroup_tpu/ops/join_kernel.py:54',
+            fn=lambda: jk.cell_neighbor_join(*args),
+            plain=lambda: jk.cell_neighbor_join_plain(*args),
+            library=None, tol_rel=0.0,
+            reason='integer join, gate in the plain order without FMA: '
+                   'exact',
+            bound=cell_join_bound(keys, cen, cc, dims, len(offs))))
+
+    # the request's grouping (m = grouping_cells of the serving caps) and
+    # the all-params step's (m = 131072)
+    join_case(join_calls[0][0], 'serving')
+    join_case(train_join_calls[0][0], 'train_all')
 
     def keyed_case(label, args, kw):
         feats, w, out_keys, in_keys, d = args
@@ -370,6 +381,8 @@ def main() -> int:
         def check(got, want):
             ref = gk.sorted_segment_sum_plain(values, seg, s).double()
             scale = float(ref.abs().max()) if ref.numel() else 0.0
+            if scale == 0.0:   # zeros against zeros hold nothing
+                return 0.0, float('inf'), 'max|plain| = 0: nothing compared'
             err = float((got.double() - want.double()).abs().max()) \
                 if got.numel() else 0.0
             diff = (got.double() - ref).abs()
@@ -411,13 +424,25 @@ def main() -> int:
     def segsum_pick(width, what):
         return pick(segsum_calls, lambda a, k: a[0].shape[1] == width, what)
 
+    def seeded(args, seed):
+        """The recorded call with seeded N(0, 1) values in the recorded
+        dtype and shape, on the recorded seg: with random weights the step
+        has few positive proposals, so the recorded cotangents of the two
+        proposal gathers are zero or nearly so."""
+        values, seg, s = args
+        g = torch.Generator(device=values.device).manual_seed(seed)
+        return (torch.randn(values.shape, generator=g, device=values.device)
+                .to(values.dtype), seg, s)
+
     args, kw = segsum_pick(32, 'devoxelize backward')
     segsum_case(f'devoxelize backward ({tcaps.points}, 32) bf16', args, kw)
     args, kw = segsum_pick(35, 'proposal-gather backward')
-    segsum_case('proposal-gather backward (S, 35) f32', args, kw)
+    segsum_case('proposal-gather backward (S, 35) f32, seeded values',
+                seeded(args, 35), kw)
     args, kw = segsum_pick(19, 'mask-gather backward')
     segsum_case(f'mask-gather backward (S, 19) '
-                f'{str(args[0].dtype).split(".")[-1]}', args, kw)
+                f'{str(args[0].dtype).split(".")[-1]}, seeded values',
+                seeded(args, 19), kw)
     # a trained model's fill: runs of 1-16 rows, no dustbin (the mask
     # gather's backward at a trained model's proposal counts)
     segsum_case('trained fill (524288, 19) bf16', k6_trained_fill(dev),
@@ -467,24 +492,32 @@ def main() -> int:
             raise RuntimeError(f"{c['name']} disagrees with its plain "
                                f"version: {err} beyond {tol}")
         ms = cuda_ms(c['fn'])
-        dev_ms = device_ms(c['fn'])
+        reading = device_reading(c['fn'])
         wrap_us = host_us(c['fn'])
         plain_ms = cuda_ms(c['plain'], reps=3, warm=1)
         lib = c['library']
         lib_ms = cuda_ms(lib) if lib else None
-        lib_dev_ms = device_ms(lib) if lib else None
+        lib_dev = device_reading(lib) if lib else None
         bound_ms, bound_by = c['bound']
         log(f"[kernel] {c['name']}: max_abs_err={err:.6g} tol={tol} "
-            f"({c['reason']}) device_ms={dev_ms:.6f} ms={ms:.6f} "
+            f"({c['reason']}) device_ms={reading_text(reading)} ms={ms:.6f} "
             f"host_us={wrap_us:.3f} plain_ms={plain_ms:.6f} "
-            f"library_device_ms={lib_dev_ms} library_ms={lib_ms} "
-            f"bound_ms={bound_ms:.6f} ({bound_by}) [{card}] OK")
+            f"library_device_ms="
+            f"{reading_text(lib_dev) if lib_dev else None} "
+            f"library_ms={lib_ms} bound_ms={bound_ms:.6f} ({bound_by}) "
+            f"[{card}] OK")
+        key = c['key']
         results.append(dict(
-            name=c['name'], key=c['key'], route=c['route'],
+            name=c['name'], key=key, route=c['route'],
+            # the path the kernel was ported for, whose launches count
+            path=c.get('path', 'train_all' if key in (
+                'rulebook_conv_dw', 'sorted_segment_sum',
+                'sorted_key_rules_join') else 'serving'),
             source=c['source'], replaces=c['replaces'], max_abs_err=err,
-            ms=ms, device_ms=dev_ms, host_us=wrap_us, plain_ms=plain_ms,
+            ms=ms, device_ms=reading[0], host_us=wrap_us, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-            library_device_ms=lib_dev_ms))
+            library_device_ms=lib_dev[0] if lib_dev else None,
+            partial_trace=reading[1] or bool(lib_dev and lib_dev[1])))
     del cases
     torch.cuda.empty_cache()
     phase_done('kernels vs plain')
@@ -659,10 +692,7 @@ def main() -> int:
         by_path = {'serving': serve_counts[key],
                    'train_frozen': train_counts[FROZEN][key],
                    'train_all': train_counts[ALL][key]}
-        # the count of the path the kernel was ported for
-        r_['launches'] = by_path['train_all' if key in (
-            'rulebook_conv_dw', 'sorted_segment_sum',
-            'sorted_key_rules_join') else 'serving']
+        r_['launches'] = by_path[r_.pop('path')]
         r_['launches_by_path'] = by_path
     log(card)
     print(json.dumps({'kernels': results}), flush=True)

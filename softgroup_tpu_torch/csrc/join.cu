@@ -1,28 +1,11 @@
 // Sorted-key joins for Hopper: the neighbour-cell join of soft grouping
 // (K3) and the rulebook join of the training proposal grids (K7, below).
-//
-// K3:
-//   cand[r, i] = j  where keys[j] == keys[i] + dlin(r), the query passes the
-//                   grid bounds test 0 <= ccoord[i] + offs[r] < dims, and
-//                   |centroid[i] - centroid[j]|^2 <= r2;   else -1
-//
-// Replaces softgroup_tpu/ops/join_kernel.py:_join_kernel (driven by
-// cell_neighbor_join).  The TPU kernel slides a key window per block and
-// matches by equality compares plus a one-hot matmul over bf16x3-split
-// centroids; here each thread owns one (offset, cell) query and finds it by
-// binary search in the sorted key table, which needs no window and so has
-// no overflow fallback.
-//
-// Bound on the H100: bytes (keys, centroids and coarse coords read once,
-// the (R, m) int32 table written once); the ~log2(m) dependent probes per
-// query hit L2, since the whole table (16 384 keys) is 64 KB.  The distance
-// is computed with explicit round-to-nearest multiply and add (no FMA
-// contraction), in the same order as the plain version, ((dx*dx + dy*dy) +
-// dz*dz), so the gate decision is bit-identical to it.
+// Both look up keys[i] + dlin(r) in one sorted int32 key table.
 
 #include <cuda_runtime.h>
 #include <climits>
 #include <cstdint>
+#include <cstring>
 
 #include "staging.cuh"
 
@@ -38,39 +21,126 @@ __device__ __forceinline__ int lower_bound_in(const int* a, int lo, int hi,
   return lo;
 }
 
-__global__ void cell_join(const int* __restrict__ keys,
-                          const float* __restrict__ centroid,
-                          const int* __restrict__ ccoord,
-                          const int* __restrict__ dims,
-                          const int* __restrict__ offs, int n_off, int m,
-                          float r2, int* __restrict__ out) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= (long long)n_off * m) return;
-  const int r = (int)(t / m), i = (int)(t - (long long)r * m);
+// the same over the key table in device memory, with 64-bit indices: K3's
+// searches, K7's of a query past its staged window (or of a wrapped query)
+__device__ __forceinline__ long long table_lower_bound(
+    const int* __restrict__ a, long long lo, long long hi, int q) {
+  while (lo < hi) {
+    const long long mid = (lo + hi) >> 1;
+    if (a[mid] < q) lo = mid + 1; else hi = mid;
+  }
+  return lo;
+}
+
+// K3: neighbour-cell join (sg_cell_join)
+//
+//   cand[r, i] = j  where keys[j] == keys[i] + dlin(r), the query passes the
+//                   grid bounds test 0 <= ccoord[i] + offs[r] < dims, and
+//                   |centroid[i] - centroid[j]|^2 <= r2;   else -1
+//
+// Replaces softgroup_tpu/ops/join_kernel.py:_join_kernel (driven by
+// cell_neighbor_join).  The TPU kernel DMAs one key window per (offset,
+// block) and matches by equality compares plus a one-hot matmul over
+// bf16x3-split centroids, with an XLA fallback on overflow.
+//
+// Bound on the H100: bytes (keys, centroids and coarse coords read once,
+// the (R, m) int32 table written once).  What it runs into is latency: a
+// query is a chain of dependent loads (L1 starts cold at each launch, so
+// most are L2 round trips).  The first design gave each thread one (offset,
+// cell) query and a lower_bound over the whole table: ~14 dependent probes
+// a query at m = 16384, ~17 at m = 131072.  Here:
+//   * a thread owns one cell and one run of offsets: consecutive offsets
+//     with the same (dx, dy) and rising dz (the host's plan; the 26 offsets
+//     of the main path make 9 runs), so the keys it looks up rise by one or
+//     two: after the run's first search, each later query steps forward
+//     from the previous match (one or two rows);
+//   * that first search brackets the match instead of searching the table:
+//     with unique keys keys[i + d] >= keys[i] + d, so the match of dlin d
+//     lies within |d| rows of the cell (at most d1 * d2 + d2 + 1 rows, and
+//     within d2 + 1 for dx = 0); the keys just outside the bracket confirm
+//     it, so duplicate keys (and a sum that leaves int32, which the plain
+//     version's int32 sum wraps) search the whole table instead, and the
+//     result stays the plain version's for any sorted table;
+//   * only a key hit gathers the candidate's centroid; the distance is
+//     computed with explicit round-to-nearest multiply and add (no FMA
+//     contraction), in the plain version's order ((dx*dx + dy*dy) + dz*dz),
+//     so the gate decision is bit-identical to it;
+//   * the offsets and runs come by value (__grid_constant__), so a thread
+//     reads them without a load that its first search would wait for;
+//   * the threads of a warp own 32 neighbouring cells of one run, so its
+//     writes of out[r, i] are 32 neighbouring ints of one row of out.
+// A tile design (a block a tile of cells, one key window a dx group staged
+// in shared memory, as the TPU kernel's three windows and K7) lost at both
+// sizes: its block-wide chain (window searches, staging, barriers) cost more
+// than the searches it saved (PERF.md, §6).
+constexpr int CJ_MAX_OFF = 128;   // offsets a launch (26 on the main path)
+
+struct CellJoinPlan {
+  int n_off, n_runs;
+  int off[3 * CJ_MAX_OFF];        // (dx, dy, dz) of each offset
+  int run[CJ_MAX_OFF + 1];        // run c: offsets [run[c], run[c + 1])
+};
+
+__global__ void __launch_bounds__(256)
+cell_join(const int* __restrict__ keys, const float* __restrict__ centroid,
+          const int* __restrict__ ccoord, const int* __restrict__ dims,
+          const __grid_constant__ CellJoinPlan plan, int m, float r2,
+          int* __restrict__ out, int* __restrict__ stats) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const int r0 = plan.run[blockIdx.y], r1 = plan.run[blockIdx.y + 1];
   const int key = keys[i];
-  int res = -1;
-  if (key != INT_MAX) {
-    const int ox = offs[3 * r], oy = offs[3 * r + 1], oz = offs[3 * r + 2];
-    const int d0 = dims[0], d1 = dims[1], d2 = dims[2];
-    const int cx = ccoord[3 * i], cy = ccoord[3 * i + 1],
-              cz = ccoord[3 * i + 2];
-    const bool ok = cx + ox >= 0 && ox <= d0 - 1 - cx && cy + oy >= 0 &&
-                    oy <= d1 - 1 - cy && cz + oz >= 0 && oz <= d2 - 1 - cz;
-    if (ok) {
-      const int q = key + (ox * d1 + oy) * d2 + oz;
-      const int lo = lower_bound_in(keys, 0, m, q);
-      if (lo < m && keys[lo] == q) {
-        const float dx = __fsub_rn(centroid[3 * i], centroid[3 * lo]);
-        const float dy = __fsub_rn(centroid[3 * i + 1], centroid[3 * lo + 1]);
-        const float dz = __fsub_rn(centroid[3 * i + 2], centroid[3 * lo + 2]);
+  const int d0 = dims[0], d1 = dims[1], d2 = dims[2];
+  const int x = ccoord[3 * i], y = ccoord[3 * i + 1], z = ccoord[3 * i + 2];
+  const float cx = centroid[3 * i], cy = centroid[3 * i + 1],
+              cz = centroid[3 * i + 2];
+  int p = -1, q_prev = 0, n_table = 0;
+  long long widest = 0;
+  for (int r = r0; r < r1; ++r) {
+    const int ox = plan.off[3 * r], oy = plan.off[3 * r + 1],
+              oz = plan.off[3 * r + 2];
+    int res = -1;
+    if (key != INT_MAX && x + ox >= 0 && ox <= d0 - 1 - x && y + oy >= 0 &&
+        oy <= d1 - 1 - y && z + oz >= 0 && oz <= d2 - 1 - z) {
+      // dlin and the query with int32 wrap-around, as the plain version's
+      // int32 tensors
+      const int dl = (int)(((unsigned)ox * (unsigned)d1 + (unsigned)oy) *
+                           (unsigned)d2 + (unsigned)oz);
+      const int q = (int)((unsigned)key + (unsigned)dl);
+      if (p >= 0 && q >= q_prev) {   // a step of the run: walk forward
+        while (p < m && keys[p] < q) ++p;
+      } else {
+        long long a = 0, b = m;
+        bool bracketed = false;
+        if ((long long)key + dl == (long long)q) {   // the sum stays in int32
+          const long long a2 = max(0LL, i + min(dl, 0));
+          const long long b2 = min((long long)m, i + max(dl, 0));
+          if ((a2 == 0 || keys[a2 - 1] < q) && (b2 == m || keys[b2] >= q)) {
+            a = a2;
+            b = b2;
+            bracketed = true;
+          }
+        }
+        if (bracketed) widest = max(widest, b - a); else ++n_table;
+        p = (int)table_lower_bound(keys, a, b, q);
+      }
+      q_prev = q;
+      if (p < m && keys[p] == q) {
+        const float dx = __fsub_rn(cx, centroid[3 * p]);
+        const float dy = __fsub_rn(cy, centroid[3 * p + 1]);
+        const float dz = __fsub_rn(cz, centroid[3 * p + 2]);
         const float dd = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx),
                                              __fmul_rn(dy, dy)),
                                    __fmul_rn(dz, dz));
-        if (dd <= r2) res = lo;
+        if (dd <= r2) res = p;
       }
     }
+    out[(long long)r * m + i] = res;
   }
-  out[t] = res;
+  if (stats != nullptr) {
+    if (widest) atomicMax(stats, (int)min(widest, (long long)INT_MAX));
+    if (n_table) atomicAdd(stats + 1, n_table);
+  }
 }
 
 // K7: rulebook join (sg_rules_join)
@@ -244,13 +314,8 @@ rules_join(const int* __restrict__ keys, const int* __restrict__ xyz,
             p = lower_bound_in(w, 0, wn, q);
           if (p < wn && w[p] == q) res = (int)(lo + p);
         } else {
-          const long long from = wraps ? 0 : lo + RJ_WCAP;
-          const long long to = wraps ? m : hi;
-          long long l = from, h = to;
-          while (l < h) {
-            const long long mid = (l + h) >> 1;
-            if (keys[mid] < q) l = mid + 1; else h = mid;
-          }
+          const long long l = table_lower_bound(
+              keys, wraps ? 0 : lo + RJ_WCAP, wraps ? m : hi, q);
           if (l < m && keys[l] == q) res = (int)l;
           ++n_global;
         }
@@ -263,16 +328,27 @@ rules_join(const int* __restrict__ keys, const int* __restrict__ xyz,
 
 }  // namespace
 
+// keys (m,) int32 sorted, INT_MAX padded; centroid (m, 3) f32; ccoord
+// (m, 3) int32; dims (3,) int32 on the card; plan: a CellJoinPlan in host
+// memory (the offsets and their runs) -> out (plan.n_off, m) int32.  block:
+// threads a block, one of 32, 64, 128, 256.  stats: null, or int32 [widest
+// bracket searched, queries searched over the whole table] that the kernel
+// raises / adds to.
 extern "C" int sg_cell_join(const void* keys, const void* centroid,
                             const void* ccoord, const void* dims,
-                            const void* offs, int n_off, int m, float r2,
-                            void* out, void* stream) {
-  const long long total = (long long)n_off * m;
-  if (total <= 0) return (int)cudaGetLastError();
-  const unsigned blocks = (unsigned)((total + 255) / 256);
-  cell_join<<<blocks, 256, 0, (cudaStream_t)stream>>>(
+                            const void* plan, int m, float r2, int block,
+                            void* out, void* stats, void* stream) {
+  CellJoinPlan p;
+  memcpy(&p, plan, sizeof p);
+  if ((long long)p.n_off * m <= 0) return (int)cudaGetLastError();
+  if ((block != 32 && block != 64 && block != 128 && block != 256) ||
+      p.n_off > CJ_MAX_OFF || p.n_runs < 1 || p.n_runs > p.n_off)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(((long long)m + block - 1) / block),
+                  (unsigned)p.n_runs);
+  cell_join<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const int*)keys, (const float*)centroid, (const int*)ccoord,
-      (const int*)dims, (const int*)offs, n_off, m, r2, (int*)out);
+      (const int*)dims, p, m, r2, (int*)out, (int*)stats);
   return (int)cudaGetLastError();
 }
 

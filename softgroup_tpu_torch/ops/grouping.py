@@ -22,6 +22,7 @@ same values.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -34,10 +35,16 @@ from .voxelize import compact_ascending
 INT_MAX = 2 ** 31 - 1
 
 
+@functools.lru_cache(maxsize=None)
 def offsets(reach: int) -> np.ndarray:
+    """The (R, 3) int32 neighbour offsets within ``reach`` cells, centre
+    left out, in ascending (dx, dy, dz) order; built once per reach (a
+    read-only array shared by every call)."""
     r = range(-reach, reach + 1)
-    return np.array([[x, y, z] for x in r for y in r for z in r
-                     if (x, y, z) != (0, 0, 0)], np.int32)
+    a = np.array([[x, y, z] for x in r for y in r for z in r
+                  if (x, y, z) != (0, 0, 0)], np.int32)
+    a.flags.writeable = False
+    return a
 
 
 def cell_cluster_csr(shifted: torch.Tensor, group: torch.Tensor,

@@ -3,8 +3,10 @@ of the training proposal grids.
 
 Replaces ``softgroup_tpu/ops/join_kernel.py:_join_kernel`` (driven by
 ``cell_neighbor_join``), called from ``grouping._cell_core`` on
-``pair_keys=False`` configs.  Kernel source and design note:
-``csrc/join.cu``.
+``pair_keys=False`` configs.  A thread of K3 takes a cell and a run of
+offsets (one (dx, dy), rising dz), searches the run's first key in the rows
+that unique keys leave for it and steps forward for the rest (design note:
+``csrc/join.cu``).
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
 it takes the plain version below, which follows the reference's XLA path
@@ -34,6 +36,11 @@ INT_MAX = 2 ** 31 - 1
 _K7_TILE = None
 _K7_MIN_BLOCKS = 2048
 _K7_MAX_OFFSETS = 64   # csrc/join.cu RJ_MAX_OFF
+# K3's threads a block (32, 64, 128 or 256); None, as the package leaves
+# it: 64, the fastest at both of the path's sizes.  Only the block sweep
+# (time_kernels --k3-block) and the card tests set it.
+_K3_BLOCK = None
+_K3_MAX_OFFSETS = 128   # csrc/join.cu CJ_MAX_OFF
 
 
 def radius_sq(radius: float) -> float:
@@ -52,7 +59,7 @@ def cell_neighbor_join_plain(table_keys, centroid, ccoord, dims, offs,
     """(R, m) int32: see ``cell_neighbor_join``."""
     m = table_keys.shape[0]
     dev = table_keys.device
-    offs_t = torch.as_tensor(np.asarray(offs, np.int32), device=dev)
+    offs_t = torch.tensor(np.asarray(offs, np.int32), device=dev)
     dims = dims.to(torch.int32)
     ct = ccoord.T[None]                                  # (1, 3, m)
     ok = ((table_keys != INT_MAX)[None, :]
@@ -74,7 +81,8 @@ def cell_neighbor_join_plain(table_keys, centroid, ccoord, dims, offs,
 
 def cell_neighbor_join(table_keys: torch.Tensor, centroid: torch.Tensor,
                        ccoord: torch.Tensor, dims: torch.Tensor, offs,
-                       radius: float) -> torch.Tensor:
+                       radius: float,
+                       stats: torch.Tensor | None = None) -> torch.Tensor:
     """cand[r, i] = j with table_keys[j] == table_keys[i] + dlin(r), the
     bounds test ``0 <= ccoord[i] + offs[r] < dims`` passed, and
     ``|centroid[i] - centroid[j]|^2 <= radius^2``; else -1.
@@ -83,24 +91,30 @@ def cell_neighbor_join(table_keys: torch.Tensor, centroid: torch.Tensor,
     group folded into x), sorted, unique among valid rows, INT_MAX padded.
     centroid (m, 3) f32; ccoord (m, 3) int32; dims (3,) int32 tensor (stays
     on the device: no host sync); offs (R, 3) integer offsets.
-    Returns (R, m) int32.
+    Returns (R, m) int32, exact.  ``stats``: an optional zeroed (2,) int32
+    tensor on the card that the kernel fills with the widest bracket it
+    searched and the count of queries it searched for over the whole table
+    (duplicate keys, or a sum beyond int32; the census of
+    ``time_kernels``).
     """
     if table_keys.device.type == 'cpu':
         return cell_neighbor_join_plain(table_keys, centroid, ccoord, dims,
                                         offs, radius)
     dev = table_keys.device
-    keys = table_keys.to(torch.int32).contiguous()
-    cen = centroid.to(torch.float32).contiguous()
-    cc = ccoord.to(torch.int32).contiguous()
-    dm = dims.to(torch.int32).contiguous()
-    offs_t = torch.as_tensor(np.asarray(offs, np.int32), device=dev)
-    kernels.require_cuda('cell_neighbor_join', keys, cen, cc, dm, offs_t)
-    m, n_off = keys.shape[0], offs_t.shape[0]
-    out = torch.empty((n_off, m), dtype=torch.int32, device=dev)
+    keys, cen, cc, dm = (_as(t, d) for t, d in (
+        (table_keys, torch.int32), (centroid, torch.float32),
+        (ccoord, torch.int32), (dims, torch.int32)))
+    kernels.require_cuda('cell_neighbor_join', keys, cen, cc, dm,
+                         *(() if stats is None else (stats,)))
+    _check_stats('cell_neighbor_join', stats)
+    plan = _k3_plan(offs)
+    m = keys.shape[0]
+    out = torch.empty((int(plan[0]), m), dtype=torch.int32, device=dev)
     rc = kernels.entry('join', 'sg_cell_join')(
         keys.data_ptr(), cen.data_ptr(), cc.data_ptr(), dm.data_ptr(),
-        offs_t.data_ptr(), n_off, m, radius_sq(radius), out.data_ptr(),
-        kernels.stream(dev))
+        plan.ctypes.data, m, radius_sq(radius),
+        _K3_BLOCK or 64, out.data_ptr(),
+        None if stats is None else stats.data_ptr(), kernels.stream(dev))
     kernels.check(rc, 'cell_neighbor_join')
     cell_neighbor_join.launches += 1
     return out
@@ -150,8 +164,52 @@ def _device_offsets(offs, dev: torch.device) -> torch.Tensor:
     key = (a.tobytes(), a.shape, dev)
     t = _offsets_on.get(key)
     if t is None:
-        t = _offsets_on[key] = torch.as_tensor(a, device=dev)
+        t = _offsets_on[key] = torch.tensor(a, device=dev)
     return t
+
+
+_plans: dict = {}
+
+
+def _k3_plan(offs) -> np.ndarray:
+    """K3's launch plan for the offsets ``offs`` (``CellJoinPlan`` of
+    ``csrc/join.cu``, passed to the kernel by value), built once per offset
+    set: int32 [R, number of runs, the (R, 3) offsets padded to 128 rows,
+    the runs' first offsets and R].  A run is a stretch of consecutive
+    offsets with one (dx, dy) and rising dz (9 of the 26 offsets within
+    one cell)."""
+    a = np.ascontiguousarray(np.asarray(offs, np.int32)).reshape(-1, 3)
+    key = a.tobytes()
+    plan = _plans.get(key)
+    if plan is None:
+        n = len(a)
+        if n > _K3_MAX_OFFSETS:
+            raise ValueError(f'cell_neighbor_join: at most '
+                             f'{_K3_MAX_OFFSETS} offsets, got {n}')
+        starts = [0] + [k for k in range(1, n)
+                        if a[k, 0] != a[k - 1, 0] or a[k, 1] != a[k - 1, 1]
+                        or a[k, 2] <= a[k - 1, 2]]
+        plan = np.zeros(2 + 4 * _K3_MAX_OFFSETS + 1, np.int32)
+        plan[:2] = n, len(starts)
+        plan[2:2 + 3 * n] = a.reshape(-1)
+        runs = 2 + 3 * _K3_MAX_OFFSETS
+        plan[runs:runs + len(starts) + 1] = starts + [n]
+        plan = _plans[key] = plan
+    return plan
+
+
+def _as(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``t`` as a contiguous tensor of ``dtype`` (itself where it is one:
+    ``.to`` and ``.contiguous`` cost microseconds of host time even then)."""
+    if t.dtype == dtype and t.is_contiguous():
+        return t
+    return t.to(dtype).contiguous()
+
+
+def _check_stats(what: str, stats: torch.Tensor | None) -> None:
+    if stats is not None and (stats.dtype != torch.int32
+                              or stats.numel() < 2):
+        raise ValueError(f'{what}: stats must be (2,) int32')
 
 
 def sorted_key_rules_join(table_keys: torch.Tensor, xyz: torch.Tensor,
@@ -176,9 +234,7 @@ def sorted_key_rules_join(table_keys: torch.Tensor, xyz: torch.Tensor,
     offs_t = _device_offsets(offs, dev)
     kernels.require_cuda('sorted_key_rules_join', keys, xyz, dm, offs_t,
                          *(() if stats is None else (stats,)))
-    if stats is not None and (stats.dtype != torch.int32
-                              or stats.numel() < 2):
-        raise ValueError('sorted_key_rules_join: stats must be (2,) int32')
+    _check_stats('sorted_key_rules_join', stats)
     m, n_off = keys.shape[0], offs_t.shape[0]
     if n_off > _K7_MAX_OFFSETS:
         raise ValueError(f'sorted_key_rules_join: at most {_K7_MAX_OFFSETS} '

@@ -47,7 +47,7 @@ SIGNATURES = {
     'gather': {'sg_row_gather': (_P, _P, _I, _I, _I, _LL, _P, _P),
                'sg_segment_sum': (_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P,
                                   _P, _P)},
-    'join': {'sg_cell_join': (_P, _P, _P, _P, _P, _I, _I, _F, _P, _P),
+    'join': {'sg_cell_join': (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P),
              'sg_rules_join': (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P)},
 }
 

@@ -2,21 +2,24 @@
 the timing and bound helpers ``chip_smoke.py`` uses.
 
     python -m softgroup_tpu_torch.time_kernels [label]
-        [--cases k1,k2,k4,k5,k6,k7] [--fill N,...] [--dw-group G,...]
+        [--cases k1,k2,k3,k4,k5,k6,k7] [--fill N,...] [--dw-group G,...]
         [--dw-fill N,...] [--k6-rows N,...] [--k7-tile T,...]
+        [--k3-block N,...]
     PYTHONPATH=<other checkout> python softgroup_tpu_torch/time_kernels.py \\
         [label] [...]
 
 One 250k-point room (seed 0) goes through ``test_forward`` of the seeded
 flagship net (bf16, semantic head biased as in ``chip_smoke.py``) while the
-K1, K2 and K4 call sites record their arguments; with ``k5``, ``k6`` or
-``k7`` in ``--cases``, one all-params train step of the flagship training
-config (4 x 250k-point rooms, seeds 200-203) records every K5, K6 and K7
-call.  Each case is
-then timed and printed as one line
+K1, K2, K3 and K4 call sites record their arguments; with ``k3``, ``k5``,
+``k6`` or ``k7`` in ``--cases``, one all-params train step of the flagship
+training config (4 x 250k-point rooms, seeds 200-203) records every K3,
+K5, K6 and K7 call.  Each case is then timed and printed as one line
 ``time_kernels <label> <case> device_ms=... ms=... host_us=...``:
   * device_ms: the kernels' own time a call (the profiler's CUDA time over
-    20 calls, divided by 20), without the host's gaps between launches;
+    20 calls, divided by 20), without the host's gaps between launches; a
+    trace that stays short of 20 x the kernels of one call after three
+    tries (the profiler drops kernels now and then) is printed with
+    ``partial_trace=True`` and left out of every sum and ranking;
   * ms: CUDA events around 10 back-to-back calls of the wrapper, over 10;
   * host_us: the wrapper's CPU time a call, launch included.
 K2's cases add ``library_device_ms`` (``torch.index_select``).  K5 is timed
@@ -31,7 +34,11 @@ m, share of valid keys, largest staged key window, queries searched in the
 table beyond it), each with ``device_ms``, bound and error against plain,
 plus one synthetic case each at a trained model's fill
 (``k6_trained_fill``, ``k7_trained_fill``); ``--k6-rows`` / ``--k7-tile``
-re-time them at other rows per K6 chunk / rows per K7 tile.
+re-time them at other rows per K6 chunk / rows per K7 tile.  K3's census
+has the request's call (m = 16384) and the train step's (m = 131072): m,
+valid cells, ``dims``, the key windows of each dx group at every tile
+size, hits and gated-in queries, the kernel's own bracket figures, device
+ms, bound and host us; ``--k3-block`` re-times it at other block sizes.
 
 ``--fill`` times the deep K1 cases and K4's at several values of
 ``conv_kernel._K1_FILL_BLOCKS`` / ``_K4_FILL_BLOCKS`` (the grid size below
@@ -112,43 +119,72 @@ def kernel_rows(prof) -> list[tuple[float, int, str]]:
     return rows
 
 
-def device_ms(fn, reps: int = DEVICE_REPS, tries: int = 3) -> float:
-    """The card's time of one call of ``fn``: the device time of every
-    kernel, memset and copy of ``reps`` calls under the profiler, over
-    ``reps``.  A profiler run whose trace holds no device activity (seen
-    once in a few hundred runs) is repeated, up to ``tries`` times in all;
-    then this raises."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        total = sum(r[0] for r in kernel_rows(prof))
-        if total > 0:
-            return total / reps
-    raise RuntimeError(f'the profiler saw no device time in {tries} runs')
+def trace_short(rows, reps: int, per_call: dict) -> list[str]:
+    """The kernels that a profile of ``reps`` calls (``rows``, as
+    ``kernel_rows`` gives them) saw another number of times than ``reps``
+    x their launches in one call (``per_call``: name -> launches), or saw
+    though one call launched none: empty when the trace is whole."""
+    seen = {name: count for _, count, name in rows}
+    return sorted({n for n, k in per_call.items()
+                   if seen.get(n, 0) != reps * k} | (seen.keys() - per_call))
 
 
-def device_split(fn, reps: int = DEVICE_REPS) -> str:
-    """The device ms a call of each kernel of ``fn`` (profiler, ``reps``
-    calls), as ``name:ms,...`` with the names cut at their first '('."""
+def _profile_rows(fn, reps: int) -> list[tuple[float, int, str]]:
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
+    return kernel_rows(prof)
+
+
+def profiled_rows(fn, reps: int = DEVICE_REPS, tries: int = 3):
+    """(``kernel_rows`` of ``reps`` calls of ``fn`` under the profiler,
+    whether the trace came up short).  The profiler now and then drops
+    kernels from a trace (a whole trace, or a few of its kernels), which
+    would read as a fast kernel: each kernel's count is held to ``reps`` x
+    its launches in one call (a profile of one call, taken beside it), and
+    a short trace is taken again, up to ``tries`` times in all.  The last
+    one is returned flagged, to be printed but ranked nowhere."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        per_call = {name: n for _, n, name in _profile_rows(fn, 1)}
+        rows = _profile_rows(fn, reps)
+        if per_call and not trace_short(rows, reps, per_call):
+            return rows, False
+    return rows, True
+
+
+def device_reading(fn, reps: int = DEVICE_REPS,
+                   tries: int = 3) -> tuple[float, bool]:
+    """(the card's time of one call of ``fn``: the device time of every
+    kernel, memset and copy of ``reps`` calls under the profiler, over
+    ``reps``; whether the trace stayed short after ``tries``, see
+    ``profiled_rows``)."""
+    rows, partial = profiled_rows(fn, reps, tries)
+    return sum(r[0] for r in rows) / reps, partial
+
+
+def reading_text(reading: tuple[float, bool]) -> str:
+    """``ms`` of a device reading, with `` partial_trace=True`` when its
+    trace came up short."""
+    return f'{reading[0]:.6f}' + (' partial_trace=True' if reading[1]
+                                  else '')
+
+
+def device_split(fn, reps: int = DEVICE_REPS) -> str:
+    """The device ms a call of each kernel of ``fn`` (profiler, ``reps``
+    calls), as ``name:ms,...`` with the names cut at their first '(' (and
+    `` partial_trace=True`` for a trace that stayed short)."""
+    rows, partial = profiled_rows(fn, reps)
     return ','.join(f'{name.split("(")[0].split("<")[0].split(" ")[-1]}:'
                     f'{ms / reps:.6f}'
-                    for ms, _, name in sorted(kernel_rows(prof), reverse=True))
+                    for ms, _, name in sorted(rows, reverse=True)) + (
+        ' partial_trace=True' if partial else '')
 
 
 def host_us(fn, reps: int = 20) -> float:
@@ -337,6 +373,117 @@ def rules_bound(keys, xyz, dims, n_off: int):
                  torch.float32)
 
 
+def cell_join_bound(keys, centroid, ccoord, dims, n_off: int):
+    """K3's bound: one read of keys, centroids, coarse coords and dims, one
+    write of the (n_off, m) int32 candidate table."""
+    import torch
+    return bound(nbytes(keys, centroid, ccoord, dims)
+                 + n_off * keys.shape[0] * 4, 0.0, torch.float32)
+
+
+# the tiles of consecutive cells K3's census counts key windows for
+JOIN_TILES = (32, 64, 128, 256)
+
+
+def k3_windows(keys, dims, offs, tile: int) -> list[tuple[int, int, float]]:
+    """The key windows a block of ``tile`` consecutive cells would stage
+    for K3 (one a dx, as the TPU kernel and K7 stage theirs): for each dx
+    of the offsets (ascending), (dx, the largest and the mean count over
+    the tiles of the keys in [kmin + dmin, kmax + dmax]), kmin / kmax the
+    smallest / largest valid key of a tile and dmin / dmax the smallest /
+    largest dlin of the offsets with that dx."""
+    import numpy as np
+    import torch
+    k = keys.long()
+    m = k.shape[0]
+    n_t = -(-m // tile)
+    kt = torch.cat([k, k.new_full((n_t * tile - m,), 2 ** 31 - 1)]).view(
+        n_t, tile)
+    valid = kt != 2 ** 31 - 1
+    live = valid[:, 0]
+    kmin = kt[:, 0][live]
+    kmax = torch.where(valid, kt, -2 ** 62).amax(1)[live]
+    d = [int(v) for v in dims.cpu()]
+    o = np.asarray(offs, np.int64).reshape(-1, 3)
+    dl = (o[:, 0] * d[1] + o[:, 1]) * d[2] + o[:, 2]
+    out = []
+    for dx in sorted(set(o[:, 0].tolist())):
+        sel = dl[o[:, 0] == dx]
+        n = (torch.searchsorted(k, kmax + int(sel.max()), right=True)
+             - torch.searchsorted(k, kmin + int(sel.min())))
+        out.append((dx, int(n.max()) if n.numel() else 0,
+                    float(n.double().mean()) if n.numel() else 0.0))
+    return out
+
+
+def k3_census(cases: list, lbl: str, card: str, blocks: list,
+              device_only: bool = False, device: str = 'cuda') -> None:
+    """Times every recorded K3 call (``cases``: (label, args, launches)):
+    one line each with m, the valid cells, ``dims``, each dx group's key
+    window (largest and mean over the tiles) at every tile size (what a
+    tile a block that stages one window a dx group would stage), the
+    queries that hit a key and those the centroid gate lets in; then, at
+    each block size of ``blocks`` (None: the package's), the widest bracket
+    searched and the queries searched over the whole table (where the
+    package's K3 counts them), device ms, bound, host us and whether it
+    equals the plain version, and the sum of launches x device ms."""
+    import inspect
+
+    import torch
+
+    from softgroup_tpu_torch.ops import join_kernel as jk
+    has_stats = 'stats' in inspect.signature(
+        jk.cell_neighbor_join).parameters
+    has_block = hasattr(jk, '_K3_BLOCK')
+    block0 = getattr(jk, '_K3_BLOCK', None)
+    for label, a, _ in cases:
+        keys, cen, cc, dims, offs, radius = a
+        valid = int((keys != 2 ** 31 - 1).sum())
+        hits = int((jk.cell_neighbor_join_plain(
+            keys, cen, cc, dims, offs, float('inf')) >= 0).sum())
+        gated = int((jk.cell_neighbor_join_plain(*a) >= 0).sum())
+        wins = ' '.join(
+            f'windows_t{t}=' + ','.join(f'dx{dx}:{mx}/{mean:.1f}'
+                                        for dx, mx, mean in
+                                        k3_windows(keys, dims, offs, t))
+            for t in JOIN_TILES)
+        print(f'time_kernels {lbl} K3 census {label} m={keys.shape[0]} '
+              f'valid_cells={valid} dims={[int(v) for v in dims.cpu()]} '
+              f'offsets={len(offs)} hits={hits} gated_in={gated} {wins} '
+              f'(windows: dx:largest/mean keys over the tiles)', flush=True)
+    for block in blocks:
+        if block is not None and not has_block:
+            continue
+        if block is not None:
+            jk._K3_BLOCK = block
+        tag = f' block={block}' if block is not None else ''
+        total = 0.0
+        for label, a, launches in cases:
+            keys, cen, cc, dims, offs, radius = a
+            want = jk.cell_neighbor_join_plain(*a)
+            stats = torch.zeros(2, dtype=torch.int32, device=device)
+            got = jk.cell_neighbor_join(
+                *a, **({'stats': stats} if has_stats else {}))
+            equal = torch.equal(got, want)
+            widest, whole = ((int(v) for v in stats.cpu()) if has_stats
+                             else ('n/a', 'n/a'))
+            b_ms, b_by = cell_join_bound(keys, cen, cc, dims, len(offs))
+            dev = _timed(
+                lbl, f'K3 census {label}{tag}',
+                lambda a_=a: jk.cell_neighbor_join(*a_), card,
+                f' launches={launches} widest_bracket={widest} '
+                f'whole_table_searches={whole} bound_ms={b_ms:.6f} '
+                f'({b_by}) equal={equal}', device_only)
+            if not equal:
+                raise RuntimeError(f'K3 {label}: differs from plain')
+            total += launches * dev
+        print(f'time_kernels {lbl} K3 census{tag}: '
+              f'{sum(c[2] for c in cases)} launches, sum of launches x '
+              f'device_ms = {total:.6f} ms [{card}]', flush=True)
+    if has_block:
+        jk._K3_BLOCK = block0
+
+
 def run_lengths(seg, chunk: int) -> tuple[int, float]:
     """(the longest run of a sorted seg, the share of its rows in runs
     longer than ``chunk`` rows)."""
@@ -516,18 +663,20 @@ def k7_census(calls: list, lbl: str, card: str, tiles: list,
 
 
 def _timed(label, name, fn, card, extra='', device_only=False):
-    dev = device_ms(fn)
+    """Prints one timed case; returns its device ms, NaN where the trace
+    stayed short (so no sum or ranking takes it)."""
+    reading = device_reading(fn)
     more = '' if device_only else \
         f' ms={cuda_ms(fn):.6f} host_us={host_us(fn):.3f}'
-    print(f'time_kernels {label} {name} device_ms={dev:.6f}{more}{extra} '
-          f'[{card}]', flush=True)
-    return dev
+    print(f'time_kernels {label} {name} device_ms={reading_text(reading)}'
+          f'{more}{extra} [{card}]', flush=True)
+    return float('nan') if reading[1] else reading[0]
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument('label', nargs='?', default='')
-    ap.add_argument('--cases', default='k1,k2,k4,k5,k6,k7',
+    ap.add_argument('--cases', default='k1,k2,k3,k4,k5,k6,k7',
                     help='comma-separated kernel families to time')
     ap.add_argument('--fill', default='',
                     help='comma-separated _K1_FILL_BLOCKS values to time the '
@@ -547,9 +696,12 @@ def main() -> None:
     ap.add_argument('--k7-tile', default='',
                     help='comma-separated K7 tile sizes '
                          '(join_kernel._K7_TILE) to time its census at')
+    ap.add_argument('--k3-block', default='',
+                    help='comma-separated K3 block sizes '
+                         '(join_kernel._K3_BLOCK) to time its census at')
     ap.add_argument('--device-only', action='store_true',
-                    help='time the K5, K6 and K7 censuses on device time '
-                         'alone')
+                    help='time the K3, K5, K6 and K7 censuses on device '
+                         'time alone')
     args = ap.parse_args()
     families = set(args.cases.split(','))
     import numpy as np
@@ -574,7 +726,8 @@ def main() -> None:
             net.semantic_linear.final_bias[2:4] = 2.5
         return net
 
-    if families & {'k1', 'k2', 'k4'}:
+    k3_cases = []
+    if families & {'k1', 'k2', 'k3', 'k4'}:
         cfg, caps = entry.flagship_cfg(), entry.bench_capacities()
         net = lift(entry.build_net(cfg, seed=0, device='cuda'))
         batch = entry.build_batch(make_room_scene(
@@ -582,10 +735,12 @@ def main() -> None:
             cfg, caps)
         sites = [(sparse_conv, 'rulebook_conv'), (gk, 'row_gather'),
                  (grouping, 'row_gather'), (sg, 'row_gather'),
-                 (blocks, 'keyed_conv')]
+                 (blocks, 'keyed_conv'), (grouping, 'cell_neighbor_join')]
         with Recorder(sites) as rec:
             entry.infer(net, batch, cfg, caps)
             torch.cuda.synchronize()
+        k3_cases += [(f'request m={a[0].shape[0]}', a, 1)
+                     for a, _ in rec.calls['cell_neighbor_join']]
         cases = k1_k2_args(rec.calls, caps.voxels[0], caps.grouping_cells)
         fills = [int(f) for f in args.fill.split(',') if f] or [None]
         fill0 = ck._K1_FILL_BLOCKS
@@ -605,7 +760,7 @@ def main() -> None:
                 lib = (lambda s=src, i=idx_l: torch.index_select(s, 0, i))
                 _timed(lbl, f'{name} idx={idx.dtype}',
                        lambda s=src, i=idx: gk.row_gather(s, i), card,
-                       f' library_device_ms={device_ms(lib):.6f} '
+                       f' library_device_ms={reading_text(device_reading(lib))} '
                        f'library_ms={cuda_ms(lib):.6f}')
         if 'k4' in families:
             k4 = list(k4_args(rec.calls['keyed_conv']).items())
@@ -634,7 +789,8 @@ def main() -> None:
     def values(opt):
         return [int(x) for x in opt.split(',') if x] or [None]
 
-    train_sites = {'k5': (sparse_conv, 'rulebook_conv_dw'),
+    train_sites = {'k3': (grouping, 'cell_neighbor_join'),
+                   'k5': (sparse_conv, 'rulebook_conv_dw'),
                    'k6': (gk, 'sorted_segment_sum'),
                    'k7': (rulebook, 'sorted_key_rules_join')}
     if families & set(train_sites):
@@ -654,6 +810,11 @@ def main() -> None:
         tcalls = trec.calls
         del trec
 
+    if 'k3' in families:
+        k3_cases += [(f'train step m={a[0].shape[0]}', a, 1)
+                     for a, _ in tcalls['cell_neighbor_join']]
+        k3_census(k3_cases, lbl, card, values(args.k3_block),
+                  args.device_only)
     if 'k6' in families:
         k6_census(tcalls['sorted_segment_sum'], lbl, card,
                   values(args.k6_rows), args.device_only)

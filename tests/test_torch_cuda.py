@@ -179,6 +179,162 @@ def test_cell_join_exact(dev):
     assert int((got >= 0).sum()) > 1000
 
 
+def _scan_cells(seed: int = 5, n_points: int = 60000):
+    """(keys, ccoord, centroid, dims) of the cells of a room scan as the
+    grouping builds them: 4 cm cells of the points, three groups (class %
+    3) folded into x, keys ((g*d0 + x)*d1 + y)*d2 + z sorted, dims the
+    largest cell + 2 (d1*d2 in the thousands), centroids the cells' means."""
+    xyz, _, sem, _ = make_room_scene(np.random.RandomState(seed),
+                                     n_points=n_points, n_instances=8)
+    cell = np.floor((xyz - xyz.min(0)) / 0.04).astype(np.int64)
+    group = np.maximum(sem, 0) % 3
+    d = cell.max(0) + 2
+    key = ((group * d[0] + cell[:, 0]) * d[1] + cell[:, 1]) * d[2] \
+        + cell[:, 2]
+    uk, inv = np.unique(key, return_inverse=True)
+    cnt = np.bincount(inv)
+    cen = np.stack([np.bincount(inv, xyz[:, k]) for k in range(3)], 1) \
+        / cnt[:, None]
+    cc = np.stack([(uk // (d[1] * d[2])) % d[0], (uk // d[2]) % d[1],
+                   uk % d[2]], 1)
+    return uk, cc, cen.astype(np.float32), d
+
+
+def _cell_input(case: str):
+    """(keys, centroid, ccoord, dims, radius) of one K3 card case, numpy;
+    keys sorted, INT_MAX padded."""
+    rng = np.random.RandomState(len(case))
+    radius = 0.04
+    if case in ('scan layout', 'ragged'):
+        key, cc, cen, d = _scan_cells()
+        if case == 'ragged':    # m = 3037: not a multiple of any tile
+            key, cc, cen = key[:2900], cc[:2900], cen[:2900]
+    elif case == 'sparse beside full':  # a sparse slab beside a full one:
+        d = np.array([10, 134, 67])       # dx = +-1 brackets of ~d1*d2 rows
+        yz = np.stack(np.meshgrid(np.arange(134), np.arange(67),
+                                  indexing='ij'), -1).reshape(-1, 2)
+        sparse = [np.concatenate([np.full((60, 1), x), yz[np.sort(
+            rng.choice(len(yz), 60, replace=False))]], 1) for x in (4, 5)]
+        cc = np.concatenate(sparse + [np.concatenate(
+            [np.full((len(yz), 1), 6), yz], 1)])
+        key = (cc[:, 0] * d[1] + cc[:, 1]) * d[2] + cc[:, 2]
+        cen = ((cc + rng.rand(*cc.shape)) * 0.04).astype(np.float32)
+    elif case in ('dense', 'gate ties', 'duplicate keys'):
+        d = np.array([12, 12, 12])   # two groups of full 12^3 grids
+        key = np.arange(2 * 12 ** 3)
+        cc = np.stack([(key // 144) % 12, (key // 12) % 12, key % 12], 1)
+        if case == 'gate ties':   # axis neighbours at exactly the radius,
+            radius = 0.5            # or one ulp of a coordinate off it
+            cen = (cc * 0.5 + 4.0).astype(np.float32)
+            step = rng.randint(-1, 2, cen.shape)
+            cen = np.where(step > 0, np.nextafter(cen, np.float32(np.inf)),
+                           np.where(step < 0, np.nextafter(
+                               cen, np.float32(-np.inf)), cen))
+        else:
+            cen = ((cc + 0.5 + 0.6 * (rng.rand(*cc.shape) - 0.5))
+                   * 0.04).astype(np.float32)
+        if case == 'duplicate keys':   # the first of equal keys matches
+            key, cc, cen = (np.repeat(a, 2, axis=0) for a in (key, cc, cen))
+    elif case == 'all padding':
+        key, cc = np.zeros(0, np.int64), np.zeros((0, 3), np.int64)
+        cen, d = np.zeros((0, 3), np.float32), np.array([20, 20, 20])
+    elif case == 'one row':
+        key, cc = np.array([5 * 400 + 5 * 20 + 5]), np.array([[5, 5, 5]])
+        cen, d = np.full((1, 3), 0.2, np.float32), np.array([20, 20, 20])
+    elif case == 'int32 edge':   # queries beyond the int32 ends wrap, as
+        d = np.array([40, 100, 100])  # the plain version's int32 sum
+        key = np.sort(np.concatenate([
+            INT_MAX - 1 - rng.choice(30000, 3000, replace=False),
+            rng.choice(30000, 2000, replace=False) - 2 ** 31]))
+        cc = rng.randint(0, 40, (len(key), 3)) % d
+        cen = (rng.rand(len(key), 3) * 0.01).astype(np.float32)
+        radius = 1.0
+    else:
+        raise ValueError(case)
+    pad = {'all padding': 4099, 'one row': 0, 'ragged': 137,
+           'dense': 0, 'gate ties': 0}.get(case, 1001)
+    m = len(key) + pad
+    keys = np.full(m, INT_MAX, np.int64)
+    keys[:len(key)] = key
+    ccoord = np.zeros((m, 3), np.int64)
+    ccoord[:len(key)] = cc
+    centroid = np.zeros((m, 3), np.float32)
+    centroid[:len(key)] = cen
+    return (keys.astype(np.int32), centroid, ccoord.astype(np.int32),
+            np.asarray(d, np.int32), radius)
+
+
+@pytest.mark.parametrize('block', [32, 64, 128, 256])
+@pytest.mark.parametrize('case', ['scan layout', 'sparse beside full',
+                                  'dense', 'gate ties', 'duplicate keys',
+                                  'all padding', 'one row', 'ragged',
+                                  'int32 edge'])
+def test_cell_join_cases(dev, monkeypatch, case, block):
+    """K3 equal to its plain version at every block size: the cells of a
+    room scan (three groups folded into x, d1*d2 in the thousands, so a
+    dx = +-1 offset's bracket spans thousands of rows), a sparse slab
+    beside a full one, dense 3x3x3 neighbourhoods, centroid distances
+    exactly at r^2 and one ulp either side, duplicate keys (brackets that
+    the keys at their ends refuse: the whole table is searched, as the
+    census counts), an all-padding table, m = 1, m not a multiple of the
+    block, and keys at the int32 ends (wrapped sums, searched over the
+    whole table)."""
+    monkeypatch.setattr(jk, '_K3_BLOCK', block)
+    keys, cen, cc, dims, radius = _cell_input(case)
+    args = [torch.from_numpy(a).to(dev) for a in (keys, cen, cc, dims)]
+    stats = torch.zeros(2, dtype=torch.int32, device=dev)
+    got = jk.cell_neighbor_join(*args, offsets(1), radius, stats=stats)
+    want = jk.cell_neighbor_join_plain(*args, offsets(1), radius)
+    assert torch.equal(got, want)
+    hits = int((jk.cell_neighbor_join_plain(
+        *args, offsets(1), float('inf')) >= 0).sum())
+    gated = int((want >= 0).sum())
+    widest, whole = (int(v) for v in stats.cpu())
+    d1d2 = int(dims[1]) * int(dims[2])
+    if case == 'scan layout':
+        assert hits > keys.shape[0] and 0 < gated < hits
+        assert whole == 0 and d1d2 - int(dims[2]) - 2 <= widest <= d1d2 + int(
+            dims[2]) + 1
+    if case == 'sparse beside full':
+        assert whole == 0 and widest > 2048 and gated > 0
+    if case in ('dense', 'gate ties'):
+        assert whole == 0 and 0 < gated < hits
+    if case == 'duplicate keys':
+        assert whole > 0 and gated > 0
+    if case == 'gate ties':   # exact ties are let in
+        c = cen.astype(np.float32)
+        pairs = want.cpu().numpy()
+        r, i = np.nonzero(pairs >= 0)
+        dd = ((c[i] - c[pairs[r, i]]) ** 2).sum(1, dtype=np.float32)
+        assert (dd == np.float32(radius) ** 2).sum() > 100
+    if case in ('all padding', 'one row'):
+        assert hits == 0 and whole == 0
+    if case == 'ragged':
+        assert keys.shape[0] % block != 0 and gated > 0
+    if case == 'int32 edge':
+        assert hits > 0 and whole > 0
+
+
+@pytest.mark.parametrize('offs_kind', ['reach 2', 'shuffled', 'one offset',
+                                       'repeated'])
+def test_cell_join_offset_sets(dev, offs_kind):
+    """K3 equal to its plain version on the room scan's cells for other
+    offset sets than the main path's: the 124 offsets of reach 2 (25 runs
+    of up to 5), the 26 in a seeded random order (runs cut where dz falls,
+    queries that do not rise), one offset, and offsets repeated."""
+    keys, cen, cc, dims, radius = _cell_input('scan layout')
+    args = [torch.from_numpy(a).to(dev) for a in (keys, cen, cc, dims)]
+    rng = np.random.RandomState(3)
+    offs = {'reach 2': offsets(2),
+            'shuffled': offsets(1)[rng.permutation(26)],
+            'one offset': np.array([[1, -1, 0]], np.int32),
+            'repeated': np.concatenate([offsets(1)[:5]] * 3)}[offs_kind]
+    got = jk.cell_neighbor_join(*args, offs, 2 * radius)
+    want = jk.cell_neighbor_join_plain(*args, offs, 2 * radius)
+    assert got.shape == (len(offs), keys.shape[0])
+    assert torch.equal(got, want) and int((want >= 0).sum()) > 0
+
+
 @pytest.mark.parametrize('strided', [False, True])
 def test_keyed_conv(dev, strided):
     d = 10

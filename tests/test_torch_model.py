@@ -362,3 +362,60 @@ def test_time_kernels_k6_k7_census(monkeypatch, capsys):
     (b_ms, b_by) = tk.segsum_bound(vals, seg, s, torch.bfloat16)
     assert b_by == 'bytes' and b_ms == pytest.approx(
         (524288 * 19 * 2 + 524288 * 4 + 131072 * 19 * 2) / 3.35e12 * 1e3)
+
+
+def test_time_kernels_k3_census(monkeypatch, capsys):
+    """K3's census of ``time_kernels`` on the join call of one recorded
+    request of the flagship net (small capacities, the plain version on the
+    CPU, the timer stubbed): its line has m, the valid cells, ``dims``, the
+    hits and gated-in queries and each dx group's key windows at every
+    tile size, which agree with a count over the tiles by hand."""
+    from softgroup_tpu_torch import entry, time_kernels as tk
+    from softgroup_tpu_torch.data.synthetic import make_scene
+    from softgroup_tpu_torch.ops import grouping, join_kernel
+    from softgroup_tpu_torch.time_kernels import Recorder
+    caps = Capacities(
+        points=16384, voxels=(16384, 8192, 4096, 2048, 1024, 512, 256),
+        grouping_points=32768, proposals=32, proposal_entries=32768,
+        instances=32, inst_voxels=(8192, 2048), grouping_cells=4096)
+    cfg = entry.flagship_cfg()
+    net = entry.build_net(cfg, seed=1, device='cpu', bf16=True)
+    with torch.no_grad():   # lift two classes over score_thr, as chip_smoke
+        net.semantic_linear.final_bias[2:4] = 2.5
+    batch = entry.build_batch(make_scene(np.random.RandomState(7),
+                                         n_points=8000, n_instances=6),
+                              cfg, caps, device='cpu')
+    with Recorder([(grouping, 'cell_neighbor_join')]) as rec:
+        entry.infer(net, batch, cfg, caps)
+    assert grouping.cell_neighbor_join is join_kernel.cell_neighbor_join
+    (args, _), = rec.calls['cell_neighbor_join']
+    keys, cen, cc, dims, offs, radius = args
+    assert keys.shape == (4096,) and len(offs) == 26
+    monkeypatch.setattr(tk, '_timed', lambda *a, **k: 1.0)
+    tk.k3_census([('request m=4096', args, 1)], 't', 'cpu', [None],
+                 device='cpu')
+    out = capsys.readouterr().out
+    valid = int((keys != 2 ** 31 - 1).sum())
+    assert f'K3 census request m=4096 m=4096 valid_cells={valid} ' in out
+    assert f'dims={[int(v) for v in dims]}' in out
+    assert 'K3 census: 1 launches, sum of launches x device_ms = 1.0' in out
+    gated = int((join_kernel.cell_neighbor_join_plain(*args) >= 0).sum())
+    assert f'gated_in={gated} ' in out and gated > 0
+    k = keys.numpy().astype(np.int64)
+    d = [int(v) for v in dims]
+    dl = (offs[:, 0].astype(np.int64) * d[1] + offs[:, 1]) * d[2] + offs[:, 2]
+    for tile in tk.JOIN_TILES:
+        assert f'windows_t{tile}=dx-1:' in out
+        wins = tk.k3_windows(keys, dims, offs, tile)
+        assert [w[0] for w in wins] == [-1, 0, 1]
+        for dx, largest, mean in wins:
+            sel = dl[offs[:, 0] == dx]
+            counts = []
+            for t0 in range(0, len(k), tile):
+                kt = k[t0:t0 + tile]
+                kt = kt[kt != 2 ** 31 - 1]
+                if len(kt):
+                    counts.append(int(((k >= kt[0] + sel.min())
+                                       & (k <= kt[-1] + sel.max())).sum()))
+            assert largest == max(counts)
+            assert mean == pytest.approx(np.mean(counts))

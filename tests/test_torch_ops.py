@@ -229,6 +229,42 @@ class TestGrouping:
                                      offs, 0.02).numpy(), np.asarray(ref))
         assert (out >= 0).sum() > 100
 
+    def test_cell_join_plain_matches_pallas_kernel(self):
+        """The K3 plain version against the reference's Pallas kernel
+        itself (interpret mode, forced past its overflow test) on a
+        multi-group layout: four groups folded into x, centroids on a 1/64
+        grid (exact in f32 and in the kernel's bf16x3 split, so the gate
+        sees the same distances), ties at the radius included."""
+        from softgroup_tpu.ops.join_kernel import \
+            cell_neighbor_join as pallas_join
+        rng = np.random.RandomState(16)
+        m, d = 1024, np.array([10, 12, 9])
+        cells = np.stack([rng.randint(0, 4, 2000), rng.randint(0, 8, 2000),
+                          rng.randint(0, 10, 2000), rng.randint(0, 7, 2000)],
+                         1)
+        key = np.unique(((cells[:, 0] * d[0] + cells[:, 1]) * d[1]
+                         + cells[:, 2]) * d[2] + cells[:, 3])[:m - 70]
+        keys = np.full(m, INT_MAX, np.int32)
+        keys[:len(key)] = key
+        coord = np.zeros((m, 3), np.int32)
+        coord[:len(key)] = np.stack([(key // (d[1] * d[2])) % d[0],
+                                     (key // d[2]) % d[1], key % d[2]], 1)
+        cen = ((coord + rng.randint(0, 16, (m, 3)) / 16) / 4).astype(
+            np.float32)
+        offs = grp.offsets(1)
+        ref = pallas_join(jnp.asarray(keys), jnp.asarray(cen),
+                          jnp.asarray(coord), jnp.asarray(d.astype(np.int32)),
+                          tuple(map(tuple, offs.tolist())), 0.25,
+                          block_b=128, window_w=512, interpret=True,
+                          force_kernel=True)
+        out = cell_neighbor_join_plain(_t(keys), _t(cen), _t(coord),
+                                       _t(d.astype(np.int32)), offs, 0.25)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+        hits = cell_neighbor_join_plain(_t(keys), _t(cen), _t(coord),
+                                        _t(d.astype(np.int32)), offs,
+                                        float('inf'))
+        assert 1000 < int((out >= 0).sum()) < int((hits >= 0).sum())
+
     @pytest.mark.parametrize('m_cap', [512, 4096])
     def test_cell_cluster_csr(self, m_cap):
         """Same sorted labels and payload; m_cap=512 truncates cells."""
@@ -354,3 +390,46 @@ def test_rules_join_tile(m, tile):
     from softgroup_tpu_torch.ops import join_kernel as jk
     assert jk._k7_tile(m) == tile
     assert tile == 32 or m // tile >= jk._K7_MIN_BLOCKS
+
+
+def test_cell_join_plan():
+    """K3's launch plan: the grouping's neighbour offsets are one read-only
+    array per reach in ascending (dx, dy, dz) order, and the plan built
+    once per offset set holds them with their runs (one (dx, dy), rising
+    dz): 9 runs of the 26 offsets, 25 of the 124 at reach 2, a run cut
+    where dz falls; more than 128 offsets are refused."""
+    from softgroup_tpu_torch.ops import join_kernel as jk
+    a = grp.offsets(1)
+    assert a is grp.offsets(1) and not a.flags.writeable
+    assert a.shape == (26, 3) and grp.offsets(2).shape == (124, 3)
+    assert [tuple(o) for o in a] == sorted(tuple(o) for o in a)
+    plan = jk._k3_plan(a)
+    assert jk._k3_plan(a.copy()) is plan and plan.dtype == np.int32
+    runs = 2 + 3 * jk._K3_MAX_OFFSETS
+    assert list(plan[:2]) == [26, 9]
+    np.testing.assert_array_equal(plan[2:2 + 78], a.reshape(-1))
+    assert list(plan[runs:runs + 10]) == [0, 3, 6, 9, 12, 14, 17, 20, 23, 26]
+    assert list(jk._k3_plan(grp.offsets(2))[:2]) == [124, 25]
+    flipped = np.array([[0, 0, 1], [0, 0, -1], [0, 1, -1], [1, 1, 0]])
+    plan = jk._k3_plan(flipped)
+    assert list(plan[:2]) == [4, 4] and list(plan[runs:runs + 5]) == [
+        0, 1, 2, 3, 4]
+    with pytest.raises(ValueError):
+        jk._k3_plan(np.zeros((129, 3), np.int32))
+
+
+def test_trace_short():
+    """A profile of reps calls is whole when each kernel appears reps x its
+    launches in one call: a kernel seen fewer times, not at all, or though
+    one call has none, is named."""
+    from softgroup_tpu_torch.time_kernels import trace_short
+    one = {'cell_join': 1, 'segment_sum_chunks': 1, 'Memset': 2}
+    rows = [(0.2, 20, 'cell_join'), (0.4, 20, 'segment_sum_chunks'),
+            (0.01, 40, 'Memset')]
+    assert trace_short(rows, 20, one) == []
+    assert trace_short(rows[:2] + [(0.01, 38, 'Memset')], 20, one) == [
+        'Memset']
+    assert trace_short(rows[1:], 20, one) == ['cell_join']
+    assert trace_short(rows + [(0.1, 20, 'sum_partials')], 20, one) == [
+        'sum_partials']
+    assert trace_short([], 20, one) == sorted(one)
