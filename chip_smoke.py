@@ -7,8 +7,9 @@ Phases (each prints its own lines and its seconds; any failure exits
 non-zero):
   1. the card's name and power limit; build the CUDA kernels (one nvcc per
      source, in parallel) and print the build time;
-  2. a warm-up request of the flagship model and a warm-up all-params train
-     step record the arguments each kernel gets on the two main paths; each
+  2. a warm-up request of the flagship model, one of the SoftGroup++ model
+     through the runner and a warm-up all-params train step record the
+     arguments each kernel gets on the three main paths; each
      kernel is then held against its plain PyTorch version on those inputs
      (max-abs error, tolerance, the bound of the card) and timed: the
      kernel's and the library call's device time (``device_ms``,
@@ -23,6 +24,16 @@ non-zero):
      card -> get_instances) of 250k-point rooms at full flagship width, with
      every launch counter set to 0 just before and read just after, then
      one request under the profiler;
+  3b. the SoftGroup++ serving path: 3 requests of 250k-point rooms through
+     the inference runner (``entry.build_runner(...).run_scene``: native
+     host batch at bucketed capacities -> test_forward_plus -> instances on
+     voxels expanded to points) of the SoftGroup++ ScanNet model, counters
+     set to 0 just before and read just after, with each request's stage
+     times and per-class pyramid levels; the host batch with the native
+     and the numpy builders, and each builder alone, in turns; K3's
+     census at the request's cell capacity;
+     one test_forward_plus under the profiler; and a small scene through
+     the runner on the card (f32) against the CPU;
   4. the training path: the flagship ScanNet train step (the yaml's model
      section, batch 4 x 250k-point rooms, bf16) in both modes of the recipe
      (frozen backbone, then all params), 1 warm-up and 3 timed steps each,
@@ -131,11 +142,12 @@ def main() -> int:
         from softgroup_tpu_torch.ops import grouping, kernels
         from softgroup_tpu_torch.ops import join_kernel as jk
         from softgroup_tpu_torch.ops import rulebook, sparse_conv
+        from softgroup_tpu_torch.data.synthetic import collate_scenes
         from softgroup_tpu_torch.time_kernels import (
             Recorder, bound, cell_join_bound, cuda_ms, device_reading,
             dw_bound, host_us, k4_args, k5_args, k6_trained_fill,
-            k7_trained_fill, nbytes, pick, reading_text, rules_bound,
-            segsum_bound)
+            k7_trained_fill, nbytes, pick, plus_args, reading_text,
+            rules_bound, segsum_bound)
     except ImportError as e:
         print(f'chip_smoke: the port is not importable here: {e}',
               file=sys.stderr)
@@ -185,6 +197,21 @@ def main() -> int:
         host_ms = (time.perf_counter() - t) * 1e3
         return batch, host_ms
 
+    pcfg = entry.plus_cfg()
+    pnet = lift(entry.build_net(pcfg, seed=0, device=dev, bf16=True))
+    runner = entry.build_runner(pnet, pcfg)
+
+    def plus_data(seed, n_points=250000, room=True):
+        """One collated scan for the runner: a room of ``n_points`` from
+        ``seed`` (``room=False``: a ``make_scene`` scene)."""
+        rng = np.random.RandomState(seed)
+        scene = (make_room_scene(rng, n_points=n_points, n_instances=12)
+                 if room else make_scene(rng, n_points=n_points,
+                                         n_instances=12))
+        data = collate_scenes([scene], scale=50.0)
+        data['scan_ids'] = [f'room{seed}']
+        return data
+
     def make_train_batch(i):
         """Batch ``i``: 4 rooms of 250k points from seeds 200 + 4i ...;
         returns (batch, host ms)."""
@@ -215,6 +242,15 @@ def main() -> int:
     if n_prop0 <= 0:
         raise RuntimeError('warm-up request produced no proposals')
 
+    with Recorder(sites) as prec:
+        pstats = {}
+        runner.run_scene(plus_data(0), stats=pstats)
+    log(f'[warmup] SoftGroup++ request done: caps={pstats["caps"]}, '
+        f'n_proposals={pstats["n_proposals"]}')
+    if pstats['n_proposals'] <= 0:
+        raise RuntimeError('warm-up SoftGroup++ request produced no '
+                           'proposals')
+
     train_batches = [make_train_batch(i) for i in range(TRAIN_STEPS + 1)]
     log(f'[warmup] {len(train_batches)} host batches of 4 x 250k points: '
         f'{[round(b[1], 3) for b in train_batches]} ms')
@@ -243,7 +279,7 @@ def main() -> int:
     v0 = caps.voxels[0]
     cases = []
 
-    def conv_case(label, args, dtype):
+    def conv_case(label, args, dtype, path='serving'):
         feats, w, rules = args
         feats, w = feats.to(dtype), w.to(dtype)
         hits = int((rules >= 0).sum())
@@ -253,7 +289,7 @@ def main() -> int:
         tol_rel = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-5
         cases.append(dict(
             name=f'K1 rulebook_conv {label}', key='rulebook_conv',
-            route='cuda', source='softgroup_tpu_torch/csrc/conv.cu',
+            path=path, route='cuda', source='softgroup_tpu_torch/csrc/conv.cu',
             replaces='softgroup_tpu/ops/conv_kernel.py:374',
             fn=lambda: ck.rulebook_conv(feats, w, rules),
             plain=lambda: ck.rulebook_conv_plain(feats, w, rules),
@@ -279,13 +315,14 @@ def main() -> int:
         conv_calls, lambda a, k: a[2].shape[0] == 8
         and a[1].shape[1:] == (32, 64), 'down L0->L1')[0], torch.bfloat16)
 
-    def gather_case(label, args):
+    def gather_case(label, args, path='serving'):
         src, idx = args
         byts = nbytes(src, idx) + idx.shape[0] * src[0].numel() \
             * src.element_size()
         idx_l = idx.long().clamp(0, src.shape[0] - 1)
         cases.append(dict(
-            name=f'K2 row_gather {label}', key='row_gather', route='cuda',
+            name=f'K2 row_gather {label}', key='row_gather', path=path,
+            route='cuda',
             source='softgroup_tpu_torch/csrc/gather.cu',
             replaces='softgroup_tpu/ops/gather_kernel.py:52',
             fn=lambda: gk.row_gather(src, idx),
@@ -323,8 +360,11 @@ def main() -> int:
     # the all-params step's (m = 131072)
     join_case(join_calls[0][0], 'serving')
     join_case(train_join_calls[0][0], 'train_all')
+    # the SoftGroup++ request's (m = grouping_cells of its bucketed caps)
+    plus_join = prec.calls['cell_neighbor_join'][0][0]
+    join_case(plus_join, 'serving_plus')
 
-    def keyed_case(label, args, kw):
+    def keyed_case(label, args, kw, path='serving'):
         feats, w, out_keys, in_keys, d = args
         strided = kw['strided']
         rules = ck.rules_from_keys(out_keys, in_keys, d, strided)
@@ -333,7 +373,8 @@ def main() -> int:
         byts = nbytes(feats, w, out_keys, in_keys) \
             + out_keys.shape[0] * w.shape[2] * feats.element_size()
         cases.append(dict(
-            name=f'K4 keyed_conv {label}', key='keyed_conv', route='cuda',
+            name=f'K4 keyed_conv {label}', key='keyed_conv', path=path,
+            route='cuda',
             source='softgroup_tpu_torch/csrc/conv.cu',
             replaces='softgroup_tpu/ops/conv_kernel.py:802',
             fn=lambda: ck.keyed_conv(feats, w, out_keys, in_keys, d,
@@ -347,6 +388,17 @@ def main() -> int:
 
     for label, (a, kw) in k4_args(keyed_calls).items():
         keyed_case(label[3:], a, kw)
+
+    # the SoftGroup++ request's K1, K2 and K4 calls at its bucketed caps
+    for label, (a, kw) in plus_args(prec.calls, pstats['caps'],
+                                    pcfg.semantic_classes + 3).items():
+        fam, label = label.split(' ', 1)
+        if fam == 'K1':
+            conv_case(label, a, torch.bfloat16, 'serving_plus')
+        elif fam == 'K2':
+            gather_case(label, a, 'serving_plus')
+        else:
+            keyed_case(label, a, kw, 'serving_plus')
 
     def dw_case(label, args, dtype):
         feats, g, rules = args
@@ -464,7 +516,7 @@ def main() -> int:
                                    == m_, f'K7 m={m_}')[0])
     # a trained model's fill: every row a voxel of dense 20^3 grids
     rules_case('trained fill m=131072', k7_trained_fill(dev))
-    del rec, trec, out
+    del rec, trec, prec, out
 
     results = []
     for c in cases:
@@ -587,6 +639,11 @@ def main() -> int:
     del batch, out
     phase_done('serving path')
 
+    # ---- phase 3b: the SoftGroup++ serving path ------------------------
+    plus_counts = plus_phase(runner, plus_data, lift, pcfg, plus_join,
+                             reset_counts, read_counts, card, dev)
+    phase_done('SoftGroup++ serving path')
+
     # ---- phase 4: the training path ------------------------------------
     train_counts = {}
     for mode in (FROZEN, ALL):
@@ -690,6 +747,7 @@ def main() -> int:
     for r_ in results:
         key = r_.pop('key')
         by_path = {'serving': serve_counts[key],
+                   'serving_plus': plus_counts[key],
                    'train_frozen': train_counts[FROZEN][key],
                    'train_all': train_counts[ALL][key]}
         r_['launches'] = by_path[r_.pop('path')]
@@ -700,6 +758,204 @@ def main() -> int:
         'platform': 'gpu', 'kind': kind,
         'count': torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+class HeadLevels:
+    """Keeps a reference to the level-0 semantic head's output of the
+    latest forward (no work inside the timed forward); ``last()`` then
+    gives the per-class active rows and pyramid levels that grouping took
+    from it."""
+
+    def __init__(self, net, gcfg):
+        self.net, self.gcfg, self.seen = net, gcfg, None
+
+    def __enter__(self):
+        def keep(module, args, out):
+            self.seen = (out, args[1])
+        self.hook = self.net.semantic_linear.register_forward_hook(keep)
+        return self
+
+    def __exit__(self, *exc):
+        self.hook.remove()
+
+    def last(self):
+        from softgroup_tpu_torch.model import softgroup as sg
+        counts = sg.class_active_counts(*self.seen, self.gcfg)
+        levels = sg.pyramid_levels(counts, self.gcfg)
+        return counts.tolist(), [int(v) for v in levels.tolist()]
+
+
+def plus_phase(runner, plus_data, lift, pcfg, plus_join, reset_counts,
+               read_counts, card, dev) -> dict:
+    """Phase 3b (see the module docstring); returns the launch counts of
+    the three requests."""
+    import numpy as np
+    import torch
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.evaluation.postprocess import to_numpy
+    from softgroup_tpu_torch.model.softgroup import Capacities
+    from softgroup_tpu_torch.time_kernels import k3_census
+    reset_counts()
+    rows = []
+    with HeadLevels(runner.net, pcfg.grouping_cfg) as lv:
+        for i in range(N_REQUESTS):
+            seed = 100 + i
+            data = plus_data(seed)
+            n = len(data['coords'])
+            torch.cuda.synchronize()
+            st = {}
+            ret = runner.run_scene(data, stats=st)
+            counts, levels = lv.last()
+            caps = st['caps']
+            inst = ret['pred_instances']
+            if ret['semantic_preds'].shape != (n,) or not np.isfinite(
+                    ret['offset_preds']).all():
+                raise RuntimeError(f'++ request {seed}: bad point outputs')
+            if st['n_proposals'] <= 0 or not all(
+                    np.isfinite(x['conf']) for x in inst):
+                raise RuntimeError(f'++ request {seed}: no proposals or a '
+                                   f'non-finite confidence')
+            rows.append(st)
+            lifted = ', '.join(f'class {c}: {counts[c]} active voxels, '
+                               f'level {levels[c]}' for c in (2, 3))
+            log(f'[plus] room seed={seed} points={n} caps: points='
+                f'{caps.points} voxels={list(caps.voxels)} grouping_points='
+                f'{caps.grouping_points} proposal_entries='
+                f'{caps.proposal_entries} grouping_cells='
+                f'{caps.grouping_cells}; host_batch_ms={st["host_batch_ms"]:.3f}'
+                f' (native) test_forward_plus_ms={st["forward_ms"]:.3f} '
+                f'get_instances_ms={st["postprocess_ms"]:.3f} n_proposals='
+                f'{st["n_proposals"]} instances={len(inst)}; levels by class '
+                f'{levels} ({lifted}) [{card}]')
+            if min(counts[2], counts[3]) <= 1e5:
+                log(f'[plus]   classes 2-3 stay at or below 1e5 active '
+                    f'voxels: level 2 is not reached in this request')
+    plus_counts = read_counts()
+    log(f'[main-path] SoftGroup++ serving: launches over {N_REQUESTS} '
+        f'requests: {json.dumps(plus_counts)}')
+    missing = [k for k in ('rulebook_conv', 'row_gather',
+                           'cell_neighbor_join', 'keyed_conv')
+               if plus_counts[k] <= 0]
+    if missing:
+        raise RuntimeError(f'kernels never launched on the SoftGroup++ '
+                           f'serving path: {missing}')
+    for key, what in (('forward_ms', 'test_forward_plus'),
+                      ('host_batch_ms', 'host batch'),
+                      ('postprocess_ms', 'get_instances')):
+        v = sorted(r[key] for r in rows)
+        log(f'[main-path] SoftGroup++ {what} ms/scan median='
+            f'{v[len(v) // 2]:.3f} min={v[0]:.3f} max={v[-1]:.3f} [{card}]')
+
+    # the same room's host batch, native and numpy builders, in turns
+    data = plus_data(100)
+    times = {True: [], False: []}
+    for native in (True, False, True, False):
+        t = time.perf_counter()
+        runner.build_batch(data, native=native)
+        torch.cuda.synchronize()
+        times[native].append((time.perf_counter() - t) * 1e3)
+    log(f'[host] SoftGroup++ host batch of room seed=100 (bucketed caps, '
+        f'tensors on the card): native builders '
+        f'{", ".join(f"{v:.3f}" for v in times[True])} ms, numpy builders '
+        f'{", ".join(f"{v:.3f}" for v in times[False])} ms (in turns)')
+    host_builders(data)
+
+    k3_census([('SoftGroup++ request', plus_join,
+                plus_counts['cell_neighbor_join'])], 'chip_smoke', card,
+              [None])
+    batch, caps = runner.build_batch(data)
+    profile(lambda: runner.forward(batch, caps),
+            'one SoftGroup++ request (test_forward_plus)', card)
+    del batch
+
+    # a small scene through the runner: card (f32) vs CPU (plain versions),
+    # levels 3 taken (thresholds cut to the scene's size)
+    small_caps = Capacities(
+        points=32768, voxels=(32768, 16384, 8192, 4096, 2048, 1024, 512),
+        grouping_points=65536, proposals=64, proposal_entries=65536,
+        instances=64, inst_voxels=(16384, 4096), grouping_cells=8192)
+    scfg = pcfg.copy()
+    scfg.grouping_cfg.pyramid_thresholds = [2000, 8000]
+    data = plus_data(7, n_points=20000, room=False)
+    outs, rets, lvls = {}, {}, {}
+    for d in ('cpu', dev):
+        small = entry.build_runner(
+            lift(entry.build_net(scfg, seed=1, device=d, bf16=False)), scfg,
+            small_caps, device=d)
+
+        def keep(batch, caps, _f=small.forward, _d=d):
+            out = _f(batch, caps)
+            outs[_d] = to_numpy(out)
+            return out
+        small.forward = keep
+        with HeadLevels(small.net, scfg.grouping_cfg) as lv:
+            rets[d] = small.run_scene(data)
+        lvls[d] = lv.last()[1]
+    a, r = outs[dev], outs['cpu']
+    n = len(data['coords'])
+    sem_err = float(np.abs(a['semantic_scores'][:n]
+                           - r['semantic_scores'][:n]).max())
+    off_err = float(np.abs(a['pt_offsets'][:n] - r['pt_offsets'][:n]).max())
+    p_iou, p_a, p_r = best_iou(a, r)
+    i_iou, i_a, i_r = instance_iou(rets[dev]['pred_instances'],
+                                   rets['cpu']['pred_instances'])
+    log(f'[plus-small] card vs CPU, runner on a 20k-point scene (f32, '
+        f'levels by class {lvls[dev]} on the card, {lvls["cpu"]} on the '
+        f'CPU): semantic max err {sem_err:.3g} (tol 1e-3), offset max err '
+        f'{off_err:.3g} (tol 1e-3), proposals (voxel sets) {p_a} vs {p_r}, '
+        f'mean best IoU {p_iou:.6f} (tol 0.99), instances {i_a} vs {i_r}, '
+        f'mean best IoU with one of its class {i_iou:.6f} (tol 0.99)')
+    if (sem_err > 1e-3 or off_err > 1e-3 or not p_r or p_iou < 0.99
+            or not i_r or i_iou < 0.99 or 3 not in lvls['cpu']
+            or lvls[dev] != lvls['cpu']):
+        raise RuntimeError('card and CPU disagree on the small SoftGroup++ '
+                           'request')
+    return plus_counts
+
+
+def host_builders(data: dict) -> None:
+    """Each host geometry builder alone on the scan's level 0, native and
+    numpy in turns (three each): where the two host batches part."""
+    from softgroup_tpu_torch.ops import native as nat
+    from softgroup_tpu_torch.ops.rulebook import (build_downsample_np,
+                                                  build_subm_rules_np)
+    from softgroup_tpu_torch.ops.voxelize import voxelize_np
+    coords, dims = data['coords'], data['spatial_shape']
+    vox = voxelize_np(coords)[0]
+    stages = {
+        'voxelize': (lambda: nat.voxelize_native(coords),
+                     lambda: voxelize_np(coords)),
+        'subm rules L0': (lambda: nat.subm_rules_native(vox, dims),
+                          lambda: build_subm_rules_np(vox, dims)),
+        'downsample L0': (lambda: nat.downsample_native(vox),
+                          lambda: build_downsample_np(vox))}
+    for name, fns in stages.items():
+        times = ([], [])
+        for which in (0, 1) * 3:
+            t = time.perf_counter()
+            fns[which]()
+            times[which].append((time.perf_counter() - t) * 1e3)
+        log(f'[host]   {name} ({len(vox)} voxels): native '
+            f'{", ".join(f"{v:.3f}" for v in times[0])} ms, numpy '
+            f'{", ".join(f"{v:.3f}" for v in times[1])} ms (in turns)')
+
+
+def instance_iou(a: list, r: list) -> tuple[float, int, int]:
+    """Mean over ``r``'s instances of the best mask IoU with one of
+    ``a``'s of the same class; (mean, len(a), len(r))."""
+    import numpy as np
+
+    from softgroup_tpu_torch.util.rle import rle_decode
+    masks = [(x['label_id'], rle_decode(x['pred_mask']).astype(bool))
+             for x in a]
+    best = []
+    for x in r:
+        mx = rle_decode(x['pred_mask']).astype(bool)
+        best.append(max((float((mx & my).sum() / (mx | my).sum())
+                         for lab, my in masks if lab == x['label_id']),
+                        default=0.0))
+    return (float(np.mean(best)) if best else 0.0), len(a), len(r)
 
 
 def best_iou(a: dict, r: dict) -> tuple[float, int, int]:

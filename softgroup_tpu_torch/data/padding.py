@@ -1,5 +1,6 @@
 """Host-side assembly of static-shape batches (counterpart of
-``softgroup_tpu/data/padding.py:build_scene_batch``).
+``softgroup_tpu/data/padding.py``: ``build_scene_batch``,
+``round_capacity``).
 
 The host voxelizes, builds the rulebook pyramid, averages the input
 features per voxel, sorts points by voxel and pads everything to the static
@@ -10,11 +11,22 @@ TPU window metadata, which has no counterpart here).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from ..model.softgroup import Capacities, SceneBatch
-from ..ops.geometry import build_pyramid_np
+from ..ops.geometry import HostGeometry, host_geometry
+
+
+def round_capacity(n: int, granularity: float = 2 ** 0.5,
+                   minimum: int = 1024) -> int:
+    """Round up to the next power-of-sqrt(2) bucket, as a multiple of 256:
+    scenes of similar size share one set of capacities."""
+    n = max(n, minimum)
+    b = granularity ** math.ceil(math.log(n, granularity))
+    return int(math.ceil(b / 256) * 256)
 
 
 def pad_to(arr: np.ndarray, cap: int, fill) -> np.ndarray:
@@ -33,19 +45,24 @@ def build_scene_batch(coords: np.ndarray, coords_float: np.ndarray,
                       ignore_label: int = -100,
                       batch_idxs: np.ndarray | None = None,
                       with_coords: bool = True,
-                      device: str | torch.device = 'cuda') -> SceneBatch:
+                      device: str | torch.device = 'cuda',
+                      geometry: HostGeometry | None = None) -> SceneBatch:
     """Pad a collated numpy batch into a SceneBatch with its pyramid.
 
     coords: (N, 4) int (batch, x, y, z) voxel coords (scaled, >= 0);
     spatial_shape: (3,) level-0 grid extent; batch_idxs: grouping batch ids
-    (default coords[:, 0]).
+    (default coords[:, 0]); geometry: the pyramid of ``coords`` built
+    already (``ops.geometry.host_geometry``), else built here with the
+    native builders.
     """
     if batch_idxs is None:
         batch_idxs = coords[:, 0]
     n = len(coords)
     if n > caps.points:
         raise ValueError(f"{n} points exceed capacity {caps.points}")
-    pyramid = build_pyramid_np(coords, spatial_shape, num_levels, caps.voxels)
+    if geometry is None:
+        geometry = host_geometry(coords, spatial_shape, num_levels)
+    pyramid = geometry.padded(caps.voxels)
     p2v = pyramid.p2v.numpy()
 
     # voxel-mean network input ([colors || coords_float] per with_coords)

@@ -6,25 +6,34 @@ levels, 20 semantic / 18 instance classes).
   ``evaluation.postprocess.get_instances``.  Counterpart of
   ``__graft_entry__._net_cfg`` / ``_build`` and the capacities of
   ``bench.py``.
+* SoftGroup++ serving: the model section of
+  ``configs/softgroup_pp/softgroup++_scannet.yaml`` (``plus_cfg``: scene
+  pyramid grouping, lvl_fusion) and the inference runner
+  (``build_runner``): a request is ``runner.run_scene(data)`` on one
+  collated scan, ``test_forward_plus`` at per-scene bucketed capacities.
+  Counterpart of ``tools_impl/test_runner.InferenceRunner``.
 * Training: the model section of ``configs/softgroup/softgroup_scannet.yaml``
   (``train_cfg``), the batch-4 capacities of ``tools/bench_train_batch4.py``
   (``train_capacities``), a collated batch of scenes and the train state
   (net, Adam, step).  Counterpart of ``tools/train.py``'s ``caps_from_cfg``
   / ``build_net`` and ``tools/bench_train_batch4.py``.
 
-``chip_smoke.py`` drives both.  Everything runs on ``device`` (default the
+``chip_smoke.py`` drives all three.  Everything runs on ``device`` (default the
 card); pass ``device="cpu"`` for the plain PyTorch versions of the kernels.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
 from .data.padding import build_scene_batch
 from .data.synthetic import collate_scenes
 from .model.softgroup import Capacities, SceneBatch, SoftGroupNet
+from .tools_impl.test_runner import InferenceRunner
 from .train import TrainState, make_train_step
-from .util.config import Config
+from .util.config import Config, load_config
 from .util.optim import freeze
 
 # the optimizer section of configs/softgroup/softgroup_scannet.yaml:
@@ -55,6 +64,28 @@ def bench_capacities() -> Capacities:
         voxels=(196608, 98304, 32768, 8192, 2048, 1024, 512),
         grouping_points=393216, proposals=256, proposal_entries=262144,
         instances=128, inst_voxels=(65536, 16384), grouping_cells=16384)
+
+
+PLUS_YAML = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'configs',
+    'softgroup_pp', 'softgroup++_scannet.yaml')
+
+
+def plus_cfg() -> Config:
+    """The model section of ``configs/softgroup_pp/softgroup++_scannet.yaml``
+    (SoftGroup++ ScanNet: channels 32, 7 levels, 20 / 18 classes,
+    ``pair_keys: False``, ``with_pyramid``, ``lvl_fusion``).  Its
+    ``with_octree`` and ``pyramid_base_size`` are read by nothing."""
+    return load_config(PLUS_YAML).model
+
+
+def build_runner(net: SoftGroupNet, cfg: Config,
+                 base_caps: Capacities = bench_capacities(),
+                 device='cuda') -> InferenceRunner:
+    """The inference runner of ``net`` (already on ``device``): per-scene
+    capacities bucketed from ``base_caps``, ``cfg.num_blocks`` levels."""
+    return InferenceRunner(net, cfg, base_caps, cfg.num_blocks,
+                           device=device)
 
 
 def build_net(cfg: Config, seed: int = 0, device='cuda',

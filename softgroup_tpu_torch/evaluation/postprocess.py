@@ -1,6 +1,8 @@
 """Host-side inference postprocessing: the per-scan instance list from the
-outputs of ``SoftGroupNet.test_forward`` (numpy copy of
-``softgroup_tpu/evaluation/postprocess.py:get_instances``).
+outputs of ``SoftGroupNet.test_forward`` / ``test_forward_plus``, and the
+gt encoding of the instance evaluator (numpy copies of
+``softgroup_tpu/evaluation/postprocess.py``: ``get_instances``,
+``get_gt_instances``).
 
 ``out`` holds numpy arrays (``to_numpy`` converts a dict of tensors); entries
 are CSR-sorted by proposal id.
@@ -82,3 +84,17 @@ def get_instances(scan_id: str, out: dict, n_points: int, cfg,
                                   conf=float(score[p]),
                                   pred_mask=rle_encode(mask)))
     return instances
+
+
+def get_gt_instances(semantic_labels: np.ndarray, instance_labels: np.ndarray,
+                     semantic_classes: int, instance_classes: int
+                     ) -> np.ndarray:
+    """gt as ``sem * 1000 + inst``, 0 = ignored: semantic ids shifted so
+    the instance classes start at 1."""
+    label_shift = semantic_classes - instance_classes
+    sem = semantic_labels - label_shift + 1
+    sem = np.where(sem < 0, 0, sem)
+    inst = instance_labels + 1
+    gt = sem.astype(np.int64) * 1000 + inst
+    gt[inst < 0] = 0  # ignored instances (label -100)
+    return gt

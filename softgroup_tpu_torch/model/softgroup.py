@@ -1,7 +1,8 @@
-"""SoftGroup inference and training in PyTorch (counterpart of
+"""SoftGroup / SoftGroup++ inference and training in PyTorch (counterpart of
 ``softgroup_tpu/model/softgroup.py``: ``SoftGroupNet`` setup / ``backbone``
-/ ``instance_head`` / ``test_forward`` / ``loss_forward``,
-``forward_grouping``, ``clusters_voxelization``, ``build_keyed_levels``,
+/ ``backbone_voxel_heads`` / ``instance_head`` / ``test_forward`` /
+``test_forward_plus`` / ``loss_forward``, ``forward_grouping`` with the
+scene pyramid, ``clusters_voxelization``, ``build_keyed_levels``,
 ``build_pyramid_from_voxels``, the losses).
 
 Shapes are static capacities with validity masks, as in the reference, so
@@ -26,7 +27,8 @@ from ..ops.masks import mask_iou_on_cluster, mask_iou_on_pred, mask_label
 from ..ops.rulebook import build_downsample_linear, build_subm_rules_linear
 from ..ops.segment import (segment_max, segment_mean, segment_mean_fused,
                            segment_min)
-from ..ops.voxelize import compact_ascending, devoxelize, voxelize_linear
+from ..ops.voxelize import (compact_ascending, devoxelize, voxel_features,
+                            voxelize_linear)
 from ..util.config import getattr_or
 from .blocks import MLP, Dense, MaskedBatchNorm, SubMConv, UBlock
 
@@ -46,8 +48,10 @@ class SceneBatch:
     instance_pointnum: torch.Tensor  # (I,) int32
     instance_cls: torch.Tensor       # (I,) int32
     instance_valid: torch.Tensor     # (I,) bool
-    vox_in: torch.Tensor             # (V0, C_in) voxel-mean network input
-    point_perm: torch.Tensor         # (P,) original index of each row
+    # (V0, C_in) host-built voxel-mean network input; None: averaged on
+    # the device from feats (and coords_float, per with_coords)
+    vox_in: torch.Tensor | None = None
+    point_perm: torch.Tensor | None = None   # (P,) original index of a row
 
 
 class Capacities(NamedTuple):
@@ -106,19 +110,42 @@ class SoftGroupNet(nn.Module):
                                    num_layers=2, generator=g)
             self.iou_score_linear = Dense(ch, instance_classes + 1, g)
 
-    def backbone(self, x: torch.Tensor, pyramid: Pyramid):
-        """input_conv -> UBlock -> BN/ReLU -> devoxelize -> point heads.
-        ``x`` is the voxel-level input (V0, C_in)."""
+    def _voxel_feats(self, x: torch.Tensor, pyramid: Pyramid):
+        """input_conv -> UBlock -> BN/ReLU on the level-0 voxels."""
         lv0 = pyramid.levels[0]
         x = x.to(torch.bfloat16 if self.bf16 else torch.float32)
         x = self.input_conv(x, lv0)
         x = self.unet(x, pyramid.levels)
-        x = torch.relu(self.output_norm(x, lv0.vox_valid))
-        output_feats = devoxelize(x, pyramid.p2v)
+        return torch.relu(self.output_norm(x, lv0.vox_valid))
+
+    def backbone(self, x: torch.Tensor, pyramid: Pyramid):
+        """input_conv -> UBlock -> BN/ReLU -> devoxelize -> point heads.
+        ``x`` is the voxel-level input (V0, C_in)."""
+        output_feats = devoxelize(self._voxel_feats(x, pyramid), pyramid.p2v)
         pmask = pyramid.point_valid
         semantic_scores = self.semantic_linear(output_feats, pmask).float()
         pt_offsets = self.offset_linear(output_feats, pmask).float()
         return semantic_scores, pt_offsets, output_feats
+
+    def backbone_voxel_heads(self, x: torch.Tensor, pyramid: Pyramid):
+        """SoftGroup++ lvl_fusion: the point heads on the level-0 voxels
+        (no devoxelize)."""
+        x = self._voxel_feats(x, pyramid)
+        vmask = pyramid.levels[0].vox_valid
+        semantic_scores = self.semantic_linear(x, vmask).float()
+        pt_offsets = self.offset_linear(x, vmask).float()
+        return semantic_scores, pt_offsets, x
+
+    def _input_voxels(self, batch: SceneBatch, cfg) -> torch.Tensor:
+        """The voxel-level network input: the host-built ``vox_in``, else
+        the mean of the point features per level-0 voxel."""
+        if batch.vox_in is not None:
+            return batch.vox_in
+        feats = batch.feats
+        if cfg.with_coords:
+            feats = torch.cat([feats, batch.coords_float], dim=1)
+        v0 = batch.pyramid.levels[0].vox_valid.shape[0]
+        return voxel_features(feats, batch.pyramid.p2v, v0)
 
     def instance_head(self, inst_vox_feats, inst_levels, entry_p2v,
                       n_proposal_cap: int):
@@ -143,25 +170,59 @@ class SoftGroupNet(nn.Module):
     def test_forward(self, batch: SceneBatch, cfg, caps: Capacities) -> dict:
         """Device part of inference; host instance extraction lives in
         evaluation/postprocess.py."""
-        sem, off, outf = self.backbone(batch.vox_in, batch.pyramid)
+        sem, off, outf = self.backbone(self._input_voxels(batch, cfg),
+                                       batch.pyramid)
         out = dict(semantic_scores=sem, pt_offsets=off,
                    semantic_preds=torch.argmax(sem, dim=1))
         if not self.semantic_only:
-            props = forward_grouping(sem, off, batch.batch_idxs,
-                                     batch.coords_float,
-                                     batch.pyramid.point_valid, cfg, caps)
-            vox_feats, levels, entry_p2v = clusters_voxelization(
-                props, outf, batch.coords_float,
-                float(cfg.instance_voxel_cfg.scale),
-                int(cfg.instance_voxel_cfg.spatial_shape), caps)
-            cls_scores, iou_scores, mask_scores = self.instance_head(
-                vox_feats, levels, entry_p2v, caps.proposals)
-            out.update(
-                cls_scores=torch.softmax(cls_scores, dim=-1),
-                iou_scores=iou_scores, mask_scores=mask_scores,
-                entry_pt=props.entry_pt, entry_seg=props.entry_seg,
-                entry_valid=props.entry_valid, n_proposals=props.n_proposals)
+            out.update(self._group_and_refine(
+                sem, off, outf, batch.batch_idxs, batch.coords_float,
+                batch.pyramid.point_valid, cfg, caps))
         return out
+
+    @torch.no_grad()
+    def test_forward_plus(self, batch: SceneBatch, cfg,
+                          caps: Capacities) -> dict:
+        """SoftGroup++ lvl_fusion inference: grouping and refinement run on
+        the level-0 voxels (``entry_pt`` indexes voxels; the host maps
+        masks back to points through p2v).  The point-level semantics and
+        offsets are the voxel heads gathered through p2v, one K2 gather of
+        both heads (pad points read the last voxel, as the reference's
+        clipped gather)."""
+        lv0 = batch.pyramid.levels[0]
+        v0 = lv0.vox_valid.shape[0]
+        sem_v, off_v, outf_v = self.backbone_voxel_heads(
+            self._input_voxels(batch, cfg), batch.pyramid)
+        p2v = batch.pyramid.p2v
+        n_sem = sem_v.shape[1]
+        heads = devoxelize(torch.cat([sem_v, off_v], dim=1), p2v)
+        sem_pt = heads[:, :n_sem]
+        out = dict(semantic_scores=sem_pt, pt_offsets=heads[:, n_sem:],
+                   semantic_preds=torch.argmax(sem_pt, dim=1))
+        if not self.semantic_only:
+            vox_cf = voxel_features(batch.coords_float, p2v, v0)
+            vox_batch = torch.where(lv0.vox_valid, lv0.vox_coords[:, 0], 0)
+            out.update(self._group_and_refine(
+                sem_v, off_v, outf_v, vox_batch, vox_cf, lv0.vox_valid, cfg,
+                caps))
+        return out
+
+    def _group_and_refine(self, sem, off, feats, batch_idxs, coords,
+                          valid, cfg, caps: Capacities) -> dict:
+        """Soft grouping of the rows (points, or voxels under lvl_fusion),
+        their re-voxelization and the refinement heads."""
+        props = forward_grouping(sem, off, batch_idxs, coords, valid, cfg,
+                                 caps)
+        vox_feats, levels, entry_p2v = clusters_voxelization(
+            props, feats, coords, float(cfg.instance_voxel_cfg.scale),
+            int(cfg.instance_voxel_cfg.spatial_shape), caps)
+        cls_scores, iou_scores, mask_scores = self.instance_head(
+            vox_feats, levels, entry_p2v, caps.proposals)
+        return dict(
+            cls_scores=torch.softmax(cls_scores, dim=-1),
+            iou_scores=iou_scores, mask_scores=mask_scores,
+            entry_pt=props.entry_pt, entry_seg=props.entry_seg,
+            entry_valid=props.entry_valid, n_proposals=props.n_proposals)
 
     def loss_forward(self, batch: SceneBatch, cfg, caps: Capacities,
                      generator: torch.Generator | None = None,
@@ -170,7 +231,8 @@ class SoftGroupNet(nn.Module):
         uniform numbers of the proposal grids' random quantization (r1, r2;
         drawn from ``generator`` when not given).  Grouping runs on detached
         scores and offsets."""
-        sem, off, outf = self.backbone(batch.vox_in, batch.pyramid)
+        sem, off, outf = self.backbone(self._input_voxels(batch, cfg),
+                                       batch.pyramid)
         losses = point_wise_loss(sem, off, batch.semantic_labels,
                                  batch.instance_labels,
                                  batch.pt_offset_labels,
@@ -199,6 +261,37 @@ class SoftGroupNet(nn.Module):
 # Grouping (no parameters)
 # ---------------------------------------------------------------------------
 
+def _ignored(gcfg, n_cls: int, dev) -> torch.Tensor:
+    ignore = torch.zeros((n_cls,), dtype=torch.bool, device=dev)
+    ignore[list(gcfg.ignore_classes)] = True
+    return ignore
+
+
+def _active(scores: torch.Tensor, point_valid: torch.Tensor, gcfg,
+            ignore: torch.Tensor) -> torch.Tensor:
+    """(C, P): the valid rows whose softmax score of a non-ignored class
+    clears score_thr."""
+    return ((scores.T > float(gcfg.score_thr)) & point_valid[None, :]
+            & ~ignore[:, None])
+
+
+def class_active_counts(semantic_scores: torch.Tensor,
+                        point_valid: torch.Tensor, gcfg) -> torch.Tensor:
+    """(C,) active rows a class: what grouping gates classes and pyramid
+    levels on."""
+    scores = torch.softmax(semantic_scores.float(), dim=-1)
+    ignore = _ignored(gcfg, scores.shape[1], scores.device)
+    return _active(scores, point_valid, gcfg, ignore).sum(dim=1)
+
+
+def pyramid_levels(counts: torch.Tensor, gcfg) -> torch.Tensor:
+    """SoftGroup++ scene pyramid: each class's level (1, 2 or 3, f32) from
+    its active count, above the first / second of
+    ``pyramid_thresholds``."""
+    lo, hi = getattr_or(gcfg, 'pyramid_thresholds', (100000, 1000000))
+    return torch.where(counts > hi, 3.0, torch.where(counts > lo, 2.0, 1.0))
+
+
 def forward_grouping(semantic_scores: torch.Tensor, pt_offsets: torch.Tensor,
                      batch_idxs: torch.Tensor, coords_float: torch.Tensor,
                      point_valid: torch.Tensor, cfg: Any,
@@ -207,19 +300,21 @@ def forward_grouping(semantic_scores: torch.Tensor, pt_offsets: torch.Tensor,
     whose softmax score clears score_thr; classes with fewer than min_npoint
     active points yield nothing; all classes cluster in one call (the group
     key separates them) and components below the class-size threshold are
-    dropped."""
+    dropped.
+
+    ``with_pyramid`` (SoftGroup++): a class's entry coordinates are divided
+    by its pyramid level, which equals scaling its cell size and radius by
+    the level (the group key keeps classes apart).  A true f32 division,
+    as the reference's: a product with 1/3 rounds otherwise."""
     gcfg = cfg.grouping_cfg
     if getattr_or(gcfg, 'exact_ball_query', False):
         raise NotImplementedError('exact_ball_query grouping is not ported')
-    if getattr_or(gcfg, 'with_pyramid', False):
-        raise NotImplementedError('with_pyramid grouping is not ported')
     dev = semantic_scores.device
     p, n_cls = semantic_scores.shape
     n_tot = caps.grouping_points
     scores = torch.softmax(semantic_scores.float(), dim=-1)
 
-    ignore = torch.zeros((n_cls,), dtype=torch.bool, device=dev)
-    ignore[list(gcfg.ignore_classes)] = True
+    ignore = _ignored(gcfg, n_cls, dev)
     numpoint_mean = torch.tensor(gcfg.class_numpoint_mean,
                                  dtype=torch.float32, device=dev)
     radius = float(gcfg.radius)
@@ -227,8 +322,7 @@ def forward_grouping(semantic_scores: torch.Tensor, pt_offsets: torch.Tensor,
     npoint_thr = float(gcfg.npoint_thr)
     min_npoint = int(cfg.test_cfg.min_npoint)
 
-    active = ((scores.T > score_thr) & point_valid[None, :]
-              & ~ignore[:, None])                                 # (C, P)
+    active = _active(scores, point_valid, gcfg, ignore)           # (C, P)
     counts = active.sum(dim=1)
     active &= (counts >= min_npoint)[:, None]
 
@@ -258,6 +352,8 @@ def forward_grouping(semantic_scores: torch.Tensor, pt_offsets: torch.Tensor,
         pt_e = torch.where(valid_e, idx % p, 0)
         wide = row_gather(wide_src, pt_e)
     shifted = wide[:, :3].contiguous()
+    if getattr_or(gcfg, 'with_pyramid', False):
+        shifted = shifted / pyramid_levels(counts, gcfg)[cls_e.long()][:, None]
     group = wide[:, 3].to(torch.int32) * n_cls + cls_e
 
     cell_scale = float(getattr_or(gcfg, 'cell_scale', 1.0))

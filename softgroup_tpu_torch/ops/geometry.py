@@ -2,7 +2,8 @@
 (counterpart of ``softgroup_tpu/ops/geometry.py``).
 
 Geometry depends only on coordinates, so the host builds the backbone
-pyramid once per batch (numpy) and the network forward only gathers.
+pyramid once per batch (C++ through ``ops/native.py``, or numpy) and the
+network forward only gathers.
 Level l is the U-Net recursion depth l: its voxels, the 3^3 rulebook shared
 by every conv of the level, and the k2s2 maps to level l+1 and back.
 """
@@ -15,6 +16,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from . import native as _native
 from .rulebook import build_downsample_np, build_subm_rules_np
 from .voxelize import voxelize_np
 
@@ -56,41 +58,75 @@ class Pyramid:
                        self.p2v.to(device), self.point_valid.to(device))
 
 
-def build_pyramid_np(coords: np.ndarray, dims: np.ndarray, num_levels: int,
-                     capacities: Sequence[int] | None = None) -> Pyramid:
-    """Host pyramid builder (numpy).  With ``capacities`` every per-level
-    array is padded to its static capacity.  Returns CPU tensors."""
-    vox_coords, p2v, _ = voxelize_np(np.asarray(coords))
-    n_pts = len(p2v)
+@dataclass
+class HostGeometry:
+    """The unpadded host pyramid of one batch: per level (vox_coords,
+    subm_rules, down_rules, parent_idx, child_tap, dims) as numpy arrays
+    (the last level without the three down maps), and p2v."""
+    levels: list[tuple]
+    p2v: np.ndarray
+
+    @property
+    def counts(self) -> list[int]:
+        """The voxel count of each level."""
+        return [len(lv[0]) for lv in self.levels]
+
+    def padded(self, capacities: Sequence[int] | None = None) -> Pyramid:
+        """The pyramid as CPU tensors, every per-level array padded to its
+        static capacity (``None``: to its own size)."""
+        caps = self.counts if capacities is None else list(capacities)
+        for lvl, (n, cap) in enumerate(zip(self.counts, caps)):
+            if n > cap:
+                raise ValueError(
+                    f"level {lvl}: {n} voxels exceed capacity {cap}")
+        levels = tuple(
+            _pad_level(*lv[:5], caps[lvl],
+                       caps[lvl + 1] if lvl + 1 < len(caps) else 0, lv[5])
+            for lvl, lv in enumerate(self.levels))
+        return Pyramid(
+            levels=levels,
+            p2v=torch.from_numpy(np.minimum(self.p2v, caps[0])
+                                 .astype(np.int32)),
+            point_valid=torch.ones((len(self.p2v),), dtype=torch.bool),
+        )
+
+
+def host_geometry(coords: np.ndarray, dims: np.ndarray, num_levels: int,
+                  native: bool = True) -> HostGeometry:
+    """Host pyramid builder at the batch's own sizes.
+
+    ``native`` (the default) builds with the C++ library of
+    ``ops/native.py`` (compiled at first use; a failed build raises);
+    ``native=False`` takes the numpy builders, the plain version with the
+    same outputs."""
+    if native:
+        vox_coords, p2v, _ = _native.voxelize_native(np.asarray(coords))
+        subm_rules, downsample = (_native.subm_rules_native,
+                                  _native.downsample_native)
+    else:
+        vox_coords, p2v, _ = voxelize_np(np.asarray(coords))
+        subm_rules, downsample = build_subm_rules_np, build_downsample_np
     levels = []
     cur = vox_coords
     cur_dims = np.asarray(dims, np.int64)
     for lvl in range(num_levels):
-        cap = capacities[lvl] if capacities is not None else len(cur)
-        if len(cur) > cap:
-            raise ValueError(
-                f"level {lvl}: {len(cur)} voxels exceed capacity {cap}")
-        subm = build_subm_rules_np(cur, cur_dims)
+        subm = subm_rules(cur, cur_dims)
         if lvl + 1 < num_levels:
-            nxt, down_rules, parent_idx, child_tap = build_downsample_np(cur)
-            cap_next = (capacities[lvl + 1] if capacities is not None
-                        else len(nxt))
-            if len(nxt) > cap_next:
-                raise ValueError(
-                    f"level {lvl + 1}: {len(nxt)} voxels exceed {cap_next}")
-            levels.append(_pad_level(cur, subm, down_rules, parent_idx,
-                                     child_tap, cap, cap_next, cur_dims))
+            nxt, down_rules, parent_idx, child_tap = downsample(cur)
+            levels.append((cur, subm, down_rules, parent_idx, child_tap,
+                           cur_dims))
             cur = nxt
             cur_dims = (cur_dims + 1) // 2
         else:
-            levels.append(_pad_level(cur, subm, None, None, None, cap, 0,
-                                     cur_dims))
-    cap0 = capacities[0] if capacities is not None else len(vox_coords)
-    return Pyramid(
-        levels=tuple(levels),
-        p2v=torch.from_numpy(np.minimum(p2v, cap0).astype(np.int32)),
-        point_valid=torch.ones((n_pts,), dtype=torch.bool),
-    )
+            levels.append((cur, subm, None, None, None, cur_dims))
+    return HostGeometry(levels, p2v)
+
+
+def build_pyramid_np(coords: np.ndarray, dims: np.ndarray, num_levels: int,
+                     capacities: Sequence[int] | None = None,
+                     native: bool = True) -> Pyramid:
+    """``host_geometry`` padded to ``capacities``.  Returns CPU tensors."""
+    return host_geometry(coords, dims, num_levels, native).padded(capacities)
 
 
 def _pad_level(vc, subm, down_rules, parent_idx, child_tap, cap, cap_next,

@@ -2,7 +2,10 @@
 ``softgroup_tpu/ops/voxelize.py``).
 
 ``voxelize_np`` is the host route for the input batch; ``voxelize_linear``
-runs on the device for the proposal grids of ``clusters_voxelization``.
+runs on the device for the proposal grids of ``clusters_voxelization``;
+``voxel_features`` averages point features per voxel (the SoftGroup++
+path's voxel coordinates, and the network input of a batch without
+``vox_in``).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ import numpy as np
 import torch
 
 from .gather_kernel import gather_rows
+from .segment import segment_mean
 
 INT_MAX = 2 ** 31 - 1
 
@@ -65,6 +69,14 @@ def voxelize_linear(coords: torch.Tensor, valid: torch.Tensor, dims,
     p2v[order] = uid_s
     p2v = torch.where(valid, p2v, capacity)
     return Voxelized(vox_coords, uniq_valid, p2v, n_unique), ckey
+
+
+def voxel_features(point_feats: torch.Tensor, p2v: torch.Tensor,
+                   capacity: int) -> torch.Tensor:
+    """Mean point features per voxel (empty voxels 0).  Rows whose p2v is
+    ``capacity`` or more (pad points) fall into the dustbin segment and drop
+    out of every mean."""
+    return segment_mean(point_feats, p2v, capacity)
 
 
 def devoxelize(vox_feats: torch.Tensor, p2v: torch.Tensor) -> torch.Tensor:

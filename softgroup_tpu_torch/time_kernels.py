@@ -291,6 +291,37 @@ def k4_args(calls: list) -> dict:
     }
 
 
+def plus_args(calls: dict, caps, n_heads: int) -> dict:
+    """The K1, K2 and K4 cases of ``chip_smoke.py``'s SoftGroup++ request,
+    as (args, kwargs) by label, from its recorded calls (``caps``: its
+    bucketed capacities; ``n_heads``: the semantic classes + 3, the width
+    of the heads gather): the backbone on the level-0 voxels, the gather
+    of both heads to the points, grouping on voxel entries and
+    refinement on voxel proposals."""
+    import torch
+    conv, gather = calls['rulebook_conv'], calls['row_gather']
+    v0, p, m = caps.voxels[0], caps.grouping_points, caps.grouping_cells
+    out = {
+        f'K1 ++ L0 subm 32->32 bf16 (V0={v0})': pick(
+            conv, lambda a, k: a[2].shape == (27, v0)
+            and a[1].shape[1:] == (32, 32), '++ L0 subm'),
+        f'K1 ++ input conv 6->32 bf16 (V0={v0})': pick(
+            conv, lambda a, k: a[1].shape[1] == 6, '++ input conv'),
+        f'K2 ++ heads (V0, {n_heads}) f32 (V0={v0})': pick(
+            gather, lambda a, k: a[0].dtype == torch.float32
+            and a[0].shape == (v0, n_heads), '++ heads gather'),
+        f'K2 ++ grouping entries (V0, 4) f32 -> P={p}': pick(
+            gather, lambda a, k: a[0].dtype == torch.float32
+            and a[0].shape == (v0, 4) and a[1].shape == (p,), '++ entries'),
+        f'K2 ++ cell labels (m+1,) int32 (m={m})': pick(
+            gather, lambda a, k: a[0].dim() == 1
+            and a[0].shape[0] == m + 1, '++ labels'),
+    }
+    for label, args in k4_args(calls['keyed_conv']).items():
+        out[f'K4 ++ {label[3:]}'] = args
+    return out
+
+
 def dw_shape_label(shape: tuple, caps, base: int = 32) -> str:
     """``L<level> subm|tail|input|down/up`` of a K5 call of shape (K,
     V_out, Cin, Cout) in a train step with capacities ``caps`` and

@@ -715,3 +715,41 @@ def test_conv_dw_tiny_unet_shape(dev):
     want = ck.rulebook_conv_dw_plain(f, go, r).double()
     assert float((got.double() - want).abs().max()) <= \
         1e-4 * max(1.0, float(want.abs().max()))
+
+
+def test_plus_request_matches_cpu(dev):
+    """A SoftGroup++ request (``run_scene`` over ``test_forward_plus``: K1,
+    K2, K3 and K4 with scene-pyramid grouping at level 3) of the tiny
+    config on the card in f32 against the same request on the CPU (plain
+    versions): the smoke's gates, offsets within 1e-3 and each CPU
+    instance's best IoU with a card instance of its label >= 0.99 on
+    average."""
+    from softgroup_tpu_torch.model.softgroup import Capacities, SoftGroupNet
+    from softgroup_tpu_torch.tools_impl.test_runner import InferenceRunner
+    from softgroup_tpu_torch.util.rle import rle_decode
+    from torch_helpers import CAPS, PLUS, tiny_cfg, tiny_data
+
+    cfg = tiny_cfg(PLUS)
+    data = tiny_data()
+    data['scan_ids'] = ['tiny']
+    res = {}
+    for d in ('cpu', dev):
+        net = SoftGroupNet(channels=8, num_blocks=3, semantic_classes=6,
+                           instance_classes=4, bf16=False,
+                           generator=torch.Generator().manual_seed(3))
+        runner = InferenceRunner(net.to(d).eval(), cfg, Capacities(**CAPS),
+                                 3, device=d)
+        res[d] = runner.run_scene(data)
+    a, r = res[dev], res['cpu']
+    assert (a['semantic_preds'] == r['semantic_preds']).mean() >= 0.999
+    assert np.abs(a['offset_preds'] - r['offset_preds']).max() <= 1e-3
+    assert len(r['pred_instances']) > 0
+    best = []
+    for x in r['pred_instances']:
+        mx = rle_decode(x['pred_mask']).astype(bool)
+        best.append(max((
+            (mx & my).sum() / (mx | my).sum() for my in (
+                rle_decode(y['pred_mask']).astype(bool)
+                for y in a['pred_instances']
+                if y['label_id'] == x['label_id'])), default=0.0))
+    assert np.mean(best) >= 0.99

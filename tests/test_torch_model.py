@@ -23,7 +23,6 @@ from softgroup_tpu.data.padding import build_scene_batch as jax_batch
 from softgroup_tpu.evaluation.postprocess import \
     get_instances as jax_get_instances
 from softgroup_tpu.model.softgroup import Capacities as JCaps
-from softgroup_tpu.model.softgroup import SoftGroupNet as JNet
 from softgroup_tpu.model.softgroup import \
     forward_grouping as jax_forward_grouping
 from softgroup_tpu_torch.data.padding import build_scene_batch
@@ -32,8 +31,9 @@ from softgroup_tpu_torch.model.softgroup import (Capacities, SoftGroupNet,
                                                  forward_grouping)
 from softgroup_tpu_torch.util.convert import from_jax_variables
 
-from torch_helpers import (CAPS, TINY, TINY20, batch_args, logits_clear_of,
-                           tiny_cfg, tiny_data)
+from torch_helpers import (CAPS, TINY, TINY20, batch_args, batch_arrays,
+                           jax_tiny_model, logits_clear_of, tiny_cfg,
+                           tiny_data)
 
 torch.set_num_threads(1)
 
@@ -54,48 +54,13 @@ def batches(data):
 @pytest.fixture(scope='module')
 def jax_model(batches):
     _, jb = batches
-    cfg = tiny_cfg()
-    net = JNet(channels=8, num_blocks=3, semantic_classes=6,
-               instance_classes=4, bf16=False)
-    variables = jax.jit(lambda key, b: net.init(
-        key, b, cfg, JCaps(**CAPS), method=net.test_forward))(
-            jax.random.PRNGKey(0), jb)
-    variables = jax.tree.map(np.array, variables)   # writable copies
-    # a zero offset head keeps the shifted points on the 1/64 grid, so the
-    # grouping centroids are exact on both sides; push the running stats
-    # off their init values so the eval-mode BN is exercised
-    rng = np.random.RandomState(2)
-    params = variables['params']
-    params['offset_linear']['final_kernel'][:] = 0
-    params['offset_linear']['final_bias'][:] = 0
-    stats = jax.tree.map(
-        lambda a: (a + rng.rand(*a.shape).astype(np.float32) * 0.1),
-        variables['batch_stats'])
-    variables = dict(params=params, batch_stats=stats)
-    return net, variables
-
-
-def _arrays(tb, jb):
-    """(name, port array, reference array) of every batch field."""
-    yield 'p2v', tb.pyramid.p2v, jb.pyramid.p2v
-    yield 'point_valid', tb.pyramid.point_valid, jb.pyramid.point_valid
-    for i, (lv, jlv) in enumerate(zip(tb.pyramid.levels, jb.pyramid.levels)):
-        for f in ('vox_coords', 'vox_valid', 'subm_rules', 'down_rules',
-                  'parent_idx', 'child_tap', 'dims'):
-            a, b = getattr(lv, f), getattr(jlv, f)
-            assert (a is None) == (b is None), (i, f)
-            if a is not None:
-                yield f'{i}.{f}', a, b
-    for f in ('feats', 'coords_float', 'batch_idxs', 'semantic_labels',
-              'instance_labels', 'pt_offset_labels', 'instance_pointnum',
-              'instance_cls', 'instance_valid', 'vox_in', 'point_perm'):
-        yield f, getattr(tb, f), getattr(jb, f)
+    return jax_tiny_model(jb, tiny_cfg(), JCaps(**CAPS))
 
 
 def test_build_scene_batch_exact(batches):
     tb, jb = batches
     n = 0
-    for name, a, b in _arrays(tb, jb):
+    for name, a, b in batch_arrays(tb, jb):
         b = np.asarray(b)
         a = a.numpy()
         assert a.dtype == b.dtype, name
@@ -217,7 +182,8 @@ def test_port_imports_no_jax():
         'bad = [m for m in sys.modules if m.split(".")[0] in\n'
         '       ("jax", "jaxlib", "flax", "softgroup_tpu")]\n'
         'assert not bad, bad\n'
-        'assert "softgroup_tpu_torch.entry" in sys.modules\n')
+        'for name in ("entry", "ops.native", "tools_impl.test_runner"):\n'
+        '    assert "softgroup_tpu_torch." + name in sys.modules, name\n')
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run([sys.executable, '-c', code], cwd=root, env=env,
@@ -270,6 +236,53 @@ def test_time_kernels_finds_chip_smoke_cases():
     assert cases['K1 L5 tail 384->192'][1].shape == (27, 384, 192)
     src, idx = cases['K2 cell labels (m+1,) int32']
     assert src.shape == (4097,) and idx.dim() == 1
+
+
+def test_time_kernels_finds_plus_cases():
+    """The SoftGroup++ request's K1 / K2 / K4 cases that ``chip_smoke.py``
+    holds against their plain versions are picked from a recorded request
+    through the runner (the ++ ScanNet net, bf16, every level) at its
+    bucketed caps: the heads gather of (V0, 23) f32 rows among them."""
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.data.synthetic import collate_scenes, make_scene
+    from softgroup_tpu_torch.model import softgroup as sg
+    from softgroup_tpu_torch.ops import gather_kernel, grouping, sparse_conv
+    from softgroup_tpu_torch.model import blocks
+    from softgroup_tpu_torch.time_kernels import Recorder, plus_args
+    base = Capacities(
+        points=16384, voxels=(16384, 8192, 4096, 2048, 1024, 512, 256),
+        grouping_points=32768, proposals=32, proposal_entries=32768,
+        instances=32, inst_voxels=(8192, 2048), grouping_cells=4096)
+    cfg = entry.plus_cfg()
+    net = entry.build_net(cfg, seed=1, device='cpu', bf16=True)
+    with torch.no_grad():   # lift two classes over score_thr, as chip_smoke
+        net.semantic_linear.final_bias[2:4] = 2.5
+    runner = entry.build_runner(net, cfg, base, device='cpu')
+    data = collate_scenes([make_scene(np.random.RandomState(7),
+                                      n_points=8000, n_instances=6)],
+                          scale=50.0)
+    data['scan_ids'] = ['s7']
+    sites = [(sparse_conv, 'rulebook_conv'), (gather_kernel, 'row_gather'),
+             (grouping, 'row_gather'), (sg, 'row_gather'),
+             (blocks, 'keyed_conv')]
+    stats = {}
+    with Recorder(sites) as rec:
+        runner.run_scene(data, stats=stats)
+    caps = stats['caps']
+    assert caps.voxels[0] < base.voxels[0]   # bucketed on the scan
+    cases = plus_args(rec.calls, caps, cfg.semantic_classes + 3)
+    assert [k.split(' ')[0] for k in cases] == ['K1'] * 2 + ['K2'] * 3 \
+        + ['K4'] * 2
+    v0 = caps.voxels[0]
+    (feats, w, rules), _ = cases[f'K1 ++ L0 subm 32->32 bf16 (V0={v0})']
+    assert feats.shape == (v0, 32) and rules.shape == (27, v0)
+    (src, idx), _ = cases[f'K2 ++ heads (V0, 23) f32 (V0={v0})']
+    assert src.shape == (v0, 23) and idx.shape == (caps.points,)
+    (src, idx), _ = cases[f'K2 ++ grouping entries (V0, 4) f32 -> '
+                          f'P={caps.grouping_points}']
+    assert src.shape == (v0, 4) and idx.shape == (caps.grouping_points,)
+    (a, kw) = cases['K4 ++ subm D=20 32->32']
+    assert not kw['strided'] and a[0].shape == (base.inst_voxels[0], 32)
 
 
 def test_time_kernels_finds_k5_cases():

@@ -1,6 +1,6 @@
 """Shared inputs of the PyTorch-port parity tests: the tiny SoftGroup config
-of tests/test_model.py with ``pair_keys=False``, and one numpy scene batch
-made from a seed.  Coordinates are multiples of 1/64 so every f32 cumsum of
+of tests/test_model.py with ``pair_keys=False`` (and its SoftGroup++ form),
+and one numpy scene batch made from a seed.  Coordinates are multiples of 1/64 so every f32 cumsum of
 the grouping centroids is exact in any summation order."""
 
 from __future__ import annotations
@@ -34,6 +34,13 @@ TINY20 = dict(TINY, semantic_classes=20, instance_classes=18,
               grouping_cfg=dict(TINY['grouping_cfg'], score_thr=0.2,
                                 class_numpoint_mean=[-1.0] * 20))
 
+# the tiny config as SoftGroup++: scene-pyramid grouping and lvl_fusion;
+# thresholds low enough that a random init's classes (~2000 active voxels
+# each on tiny_data) take level 3
+PLUS = dict(TINY, grouping_cfg=dict(TINY['grouping_cfg'], with_pyramid=True,
+                                    pyramid_thresholds=(100, 1000)),
+            test_cfg=dict(TINY['test_cfg'], lvl_fusion=True))
+
 CAPS = dict(points=4096, voxels=(2048, 1024, 512), grouping_points=8192,
             proposals=32, proposal_entries=8192, instances=32,
             inst_voxels=(2048, 512), grouping_cells=4096)
@@ -62,6 +69,23 @@ def batch_args(data: dict) -> tuple:
             data['instance_cls'], data['spatial_shape'])
 
 
+def batch_arrays(tb, jb):
+    """(name, port array, reference array) of every batch field."""
+    yield 'p2v', tb.pyramid.p2v, jb.pyramid.p2v
+    yield 'point_valid', tb.pyramid.point_valid, jb.pyramid.point_valid
+    for i, (lv, jlv) in enumerate(zip(tb.pyramid.levels, jb.pyramid.levels)):
+        for f in ('vox_coords', 'vox_valid', 'subm_rules', 'down_rules',
+                  'parent_idx', 'child_tap', 'dims'):
+            a, b = getattr(lv, f), getattr(jlv, f)
+            assert (a is None) == (b is None), (i, f)
+            if a is not None:
+                yield f'{i}.{f}', a, b
+    for f in ('feats', 'coords_float', 'batch_idxs', 'semantic_labels',
+              'instance_labels', 'pt_offset_labels', 'instance_pointnum',
+              'instance_cls', 'instance_valid', 'vox_in', 'point_perm'):
+        yield f, getattr(tb, f), getattr(jb, f)
+
+
 def logits_clear_of(rng, p: int, n_cls: int, thr: float,
                     margin: float = 1e-3) -> np.ndarray:
     """(p, n_cls) f32 logits whose softmax stays ``margin`` away from
@@ -77,3 +101,29 @@ def logits_clear_of(rng, p: int, n_cls: int, thr: float,
         out[todo[ok]] = lg[ok]
         todo = todo[~ok]
     return out
+
+
+def jax_tiny_model(jb, cfg, caps):
+    """The reference's tiny net (bf16 off) and its variables, initialised
+    on the reference batch ``jb``: a zero offset head keeps the shifted
+    points on the 1/64 grid, so the grouping centroids are exact on both
+    sides, and the running stats are pushed off their init values so the
+    eval-mode BN is exercised."""
+    import jax
+
+    from softgroup_tpu.model.softgroup import SoftGroupNet as JNet
+    net = JNet(channels=cfg.channels, num_blocks=cfg.num_blocks,
+               semantic_classes=cfg.semantic_classes,
+               instance_classes=cfg.instance_classes, bf16=False)
+    variables = jax.jit(lambda key, b: net.init(
+        key, b, cfg, caps, method=net.test_forward))(
+            jax.random.PRNGKey(0), jb)
+    variables = jax.tree.map(np.array, variables)   # writable copies
+    rng = np.random.RandomState(2)
+    params = variables['params']
+    params['offset_linear']['final_kernel'][:] = 0
+    params['offset_linear']['final_bias'][:] = 0
+    stats = jax.tree.map(
+        lambda a: (a + rng.rand(*a.shape).astype(np.float32) * 0.1),
+        variables['batch_stats'])
+    return net, dict(params=params, batch_stats=stats)
