@@ -1,6 +1,7 @@
 // Sorted-key joins for Hopper: the neighbour-cell join of soft grouping
 // (K3) and the rulebook join of the training proposal grids (K7, below).
-// Both look up keys[i] + dlin(r) in one sorted int32 key table.
+// Both look up keys[i] + dlin(r) in one sorted key table: int32 (K7, and
+// K3 on pair_keys=False configs) or int64 (K3 on pair_keys=True configs).
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -23,8 +24,9 @@ __device__ __forceinline__ int lower_bound_in(const int* a, int lo, int hi,
 
 // the same over the key table in device memory, with 64-bit indices: K3's
 // searches, K7's of a query past its staged window (or of a wrapped query)
+template <typename K>
 __device__ __forceinline__ long long table_lower_bound(
-    const int* __restrict__ a, long long lo, long long hi, int q) {
+    const K* __restrict__ a, long long lo, long long hi, K q) {
   while (lo < hi) {
     const long long mid = (lo + hi) >> 1;
     if (a[mid] < q) lo = mid + 1; else hi = mid;
@@ -73,7 +75,23 @@ __device__ __forceinline__ long long table_lower_bound(
 // in shared memory, as the TPU kernel's three windows and K7) lost at both
 // sizes: its block-wide chain (window searches, staging, barriers) cost more
 // than the searches it saved (PERF.md, §6).
+//
+// The kernel is a template over the key type K.  int (sg_cell_join) sums
+// with int32 wrap-around, as the plain version's int32 tensors, and a sum
+// that leaves int32 searches the whole table.  long long (sg_cell_join64,
+// the pair_keys=True configs' keys) sums in int64, which no real grid
+// leaves, so every first search is bracketed (the keys at the bracket's
+// ends still confirm it: duplicate keys search the whole table).  The
+// sentinel is K's largest value; dlin and the bracket are 64-bit there
+// (d1 * d2 alone can pass 2^31 on a large grid).  An int64 key reads twice
+// the bytes a probe; no design change for that yet.
 constexpr int CJ_MAX_OFF = 128;   // offsets a launch (26 on the main path)
+
+template <typename K> struct KeyMax;
+template <> struct KeyMax<int> { static constexpr int value = INT_MAX; };
+template <> struct KeyMax<long long> {
+  static constexpr long long value = LLONG_MAX;
+};
 
 struct CellJoinPlan {
   int n_off, n_runs;
@@ -81,40 +99,51 @@ struct CellJoinPlan {
   int run[CJ_MAX_OFF + 1];        // run c: offsets [run[c], run[c + 1])
 };
 
+template <typename K>
 __global__ void __launch_bounds__(256)
-cell_join(const int* __restrict__ keys, const float* __restrict__ centroid,
+cell_join(const K* __restrict__ keys, const float* __restrict__ centroid,
           const int* __restrict__ ccoord, const int* __restrict__ dims,
           const __grid_constant__ CellJoinPlan plan, int m, float r2,
           int* __restrict__ out, int* __restrict__ stats) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
   const int r0 = plan.run[blockIdx.y], r1 = plan.run[blockIdx.y + 1];
-  const int key = keys[i];
+  const K key = keys[i];
   const int d0 = dims[0], d1 = dims[1], d2 = dims[2];
   const int x = ccoord[3 * i], y = ccoord[3 * i + 1], z = ccoord[3 * i + 2];
   const float cx = centroid[3 * i], cy = centroid[3 * i + 1],
               cz = centroid[3 * i + 2];
-  int p = -1, q_prev = 0, n_table = 0;
+  int p = -1, n_table = 0;
+  K q_prev = 0;
   long long widest = 0;
   for (int r = r0; r < r1; ++r) {
     const int ox = plan.off[3 * r], oy = plan.off[3 * r + 1],
               oz = plan.off[3 * r + 2];
     int res = -1;
-    if (key != INT_MAX && x + ox >= 0 && ox <= d0 - 1 - x && y + oy >= 0 &&
-        oy <= d1 - 1 - y && z + oz >= 0 && oz <= d2 - 1 - z) {
-      // dlin and the query with int32 wrap-around, as the plain version's
-      // int32 tensors
-      const int dl = (int)(((unsigned)ox * (unsigned)d1 + (unsigned)oy) *
-                           (unsigned)d2 + (unsigned)oz);
-      const int q = (int)((unsigned)key + (unsigned)dl);
+    if (key != KeyMax<K>::value && x + ox >= 0 && ox <= d0 - 1 - x &&
+        y + oy >= 0 && oy <= d1 - 1 - y && z + oz >= 0 && oz <= d2 - 1 - z) {
+      K dl, q;
+      bool in_range;
+      if constexpr (sizeof(K) == 4) {
+        // dlin and the query with int32 wrap-around, as the plain
+        // version's int32 tensors
+        dl = (int)(((unsigned)ox * (unsigned)d1 + (unsigned)oy) *
+                   (unsigned)d2 + (unsigned)oz);
+        q = (int)((unsigned)key + (unsigned)dl);
+        in_range = (long long)key + dl == (long long)q;
+      } else {
+        dl = ((long long)ox * d1 + oy) * d2 + oz;
+        q = key + dl;
+        in_range = true;
+      }
       if (p >= 0 && q >= q_prev) {   // a step of the run: walk forward
         while (p < m && keys[p] < q) ++p;
       } else {
         long long a = 0, b = m;
         bool bracketed = false;
-        if ((long long)key + dl == (long long)q) {   // the sum stays in int32
-          const long long a2 = max(0LL, i + min(dl, 0));
-          const long long b2 = min((long long)m, i + max(dl, 0));
+        if (in_range) {   // the sum stays in K
+          const long long a2 = max(0LL, i + (dl < 0 ? dl : (K)0));
+          const long long b2 = min((long long)m, i + (dl > 0 ? dl : (K)0));
           if ((a2 == 0 || keys[a2 - 1] < q) && (b2 == m || keys[b2] >= q)) {
             a = a2;
             b = b2;
@@ -334,7 +363,8 @@ rules_join(const int* __restrict__ keys, const int* __restrict__ xyz,
 // threads a block, one of 32, 64, 128, 256.  stats: null, or int32 [widest
 // bracket searched, queries searched over the whole table] that the kernel
 // raises / adds to.
-extern "C" int sg_cell_join(const void* keys, const void* centroid,
+template <typename K>
+static int launch_cell_join(const void* keys, const void* centroid,
                             const void* ccoord, const void* dims,
                             const void* plan, int m, float r2, int block,
                             void* out, void* stats, void* stream) {
@@ -346,10 +376,27 @@ extern "C" int sg_cell_join(const void* keys, const void* centroid,
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(((long long)m + block - 1) / block),
                   (unsigned)p.n_runs);
-  cell_join<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const int*)keys, (const float*)centroid, (const int*)ccoord,
+  cell_join<K><<<grid, block, 0, (cudaStream_t)stream>>>(
+      (const K*)keys, (const float*)centroid, (const int*)ccoord,
       (const int*)dims, p, m, r2, (int*)out, (int*)stats);
   return (int)cudaGetLastError();
+}
+
+extern "C" int sg_cell_join(const void* keys, const void* centroid,
+                            const void* ccoord, const void* dims,
+                            const void* plan, int m, float r2, int block,
+                            void* out, void* stats, void* stream) {
+  return launch_cell_join<int>(keys, centroid, ccoord, dims, plan, m, r2,
+                               block, out, stats, stream);
+}
+
+// the same on int64 keys (m,), LLONG_MAX padded
+extern "C" int sg_cell_join64(const void* keys, const void* centroid,
+                              const void* ccoord, const void* dims,
+                              const void* plan, int m, float r2, int block,
+                              void* out, void* stats, void* stream) {
+  return launch_cell_join<long long>(keys, centroid, ccoord, dims, plan, m,
+                                     r2, block, out, stats, stream);
 }
 
 // keys (m,) int32 sorted, INT_MAX padded; xyz (m, 3) int32; dims (3,) and

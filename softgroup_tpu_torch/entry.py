@@ -12,13 +12,18 @@ levels, 20 semantic / 18 instance classes).
   (``build_runner``): a request is ``runner.run_scene(data)`` on one
   collated scan, ``test_forward_plus`` at per-scene bucketed capacities.
   Counterpart of ``tools_impl/test_runner.InferenceRunner``.
+* S3DIS serving and evaluation: ``configs/softgroup/softgroup_s3dis_fold5.yaml``
+  (``s3dis_cfg``: the whole yaml; 13 / 13 classes, ``pair_keys`` True, the
+  x4_split test split of Area 5), its capacities (``caps_from_cfg``) and
+  its runner (``build_s3dis_runner``); ``tools_impl.test_runner.run_eval``
+  runs the test split through it and scores it.
 * Training: the model section of ``configs/softgroup/softgroup_scannet.yaml``
   (``train_cfg``), the batch-4 capacities of ``tools/bench_train_batch4.py``
   (``train_capacities``), a collated batch of scenes and the train state
   (net, Adam, step).  Counterpart of ``tools/train.py``'s ``caps_from_cfg``
   / ``build_net`` and ``tools/bench_train_batch4.py``.
 
-``chip_smoke.py`` drives all three.  Everything runs on ``device`` (default the
+``chip_smoke.py`` drives all four.  Everything runs on ``device`` (default the
 card); pass ``device="cpu"`` for the plain PyTorch versions of the kernels.
 """
 
@@ -66,9 +71,10 @@ def bench_capacities() -> Capacities:
         instances=128, inst_voxels=(65536, 16384), grouping_cells=16384)
 
 
-PLUS_YAML = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'configs',
-    'softgroup_pp', 'softgroup++_scannet.yaml')
+CONFIGS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'configs')
+PLUS_YAML = os.path.join(CONFIGS, 'softgroup_pp', 'softgroup++_scannet.yaml')
+S3DIS_YAML = os.path.join(CONFIGS, 'softgroup', 'softgroup_s3dis_fold5.yaml')
 
 
 def plus_cfg() -> Config:
@@ -77,6 +83,37 @@ def plus_cfg() -> Config:
     ``pair_keys: False``, ``with_pyramid``, ``lvl_fusion``).  Its
     ``with_octree`` and ``pyramid_base_size`` are read by nothing."""
     return load_config(PLUS_YAML).model
+
+
+def s3dis_cfg() -> Config:
+    """The whole of ``configs/softgroup/softgroup_s3dis_fold5.yaml`` (model,
+    data, dataloader and capacity sections): channels 32, 7 levels, 13 /
+    13 classes, ``sem2ins_classes`` [0, 1], ``pair_keys`` by default
+    (True), test split Area 5 with ``x4_split``."""
+    return load_config(S3DIS_YAML)
+
+
+def caps_from_cfg(cfg: Config) -> Capacities:
+    """The capacities of a whole config's ``tpu.caps`` section, as
+    ``tools/train.py`` reads them (``grouping_cells`` 65536 where the
+    config gives none)."""
+    c = cfg.tpu.caps
+    return Capacities(points=c.points, voxels=tuple(c.voxels),
+                      grouping_points=c.grouping_points,
+                      proposals=c.proposals,
+                      proposal_entries=c.proposal_entries,
+                      instances=c.instances,
+                      inst_voxels=tuple(c.inst_voxels),
+                      grouping_cells=c.get('grouping_cells', 65536))
+
+
+def build_s3dis_runner(net: SoftGroupNet, cfg: Config,
+                       device='cuda') -> InferenceRunner:
+    """The inference runner of ``net`` (already on ``device``) for a whole
+    config such as ``s3dis_cfg()``: its model section, capacities bucketed
+    from ``caps_from_cfg(cfg)``, ``model.num_blocks`` levels."""
+    return InferenceRunner(net, cfg.model, caps_from_cfg(cfg),
+                           cfg.model.num_blocks, device=device)
 
 
 def build_runner(net: SoftGroupNet, cfg: Config,
@@ -90,12 +127,15 @@ def build_runner(net: SoftGroupNet, cfg: Config,
 
 def build_net(cfg: Config, seed: int = 0, device='cuda',
               bf16: bool = True) -> SoftGroupNet:
-    """The flagship net with a seeded init, in eval mode on ``device``."""
+    """The net of a model section ``cfg`` with a seeded init, in eval
+    mode on ``device``; its input has ``cfg.in_channels`` channels where
+    the config gives them, else 6 (colour and coordinates)."""
     gen = torch.Generator().manual_seed(seed)
     net = SoftGroupNet(channels=cfg.channels, num_blocks=cfg.num_blocks,
                        semantic_classes=cfg.semantic_classes,
                        instance_classes=cfg.instance_classes,
                        semantic_only=cfg.semantic_only, bf16=bf16,
+                       in_channels=cfg.get('in_channels', 6),
                        generator=gen)
     return net.to(device).eval()
 

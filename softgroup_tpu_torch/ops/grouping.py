@@ -1,11 +1,16 @@
 """Soft grouping: connected components of offset-shifted points through a
 grid-cell contraction (counterpart of ``softgroup_tpu/ops/grouping.py``,
-``cell_cluster_csr`` / ``_cell_core`` on single int32 linear keys,
-``pair_keys=False``).
+``cell_cluster_csr`` / ``_cell_core``).
 
 1. bucket entries into cells of size radius * cell_scale, the group
-   (batch x class) folded into the linear key; one stable sort carries the
-   payload and coordinates with the key;
+   (batch x class) folded into one linear key ((g*d0 + x)*d1 + y)*d2 + z;
+   one stable sort carries the payload and coordinates with the key.
+   ``pair_keys=False`` (the ScanNet configs) keeps it in int32, as the
+   reference does; ``pair_keys=True`` (every other config) computes it in
+   int64.  The reference's pair of int32 keys (hi = g*d0 + x, lo = y*d2 +
+   z; the TPU has no int64) sorts in the order of hi*(d1*d2) + lo, which
+   is this int64 key since lo < d1*d2: the same cells, order and labels,
+   at extents where groups * d0*d1*d2 passes 2^31;
 2. per-cell tables (first/last entry, count, centroid by f64 cumsum difference)
    over the sorted order, capped at ``m`` cells;
 3. neighbour cells whose centroids lie within the radius: the join kernel
@@ -35,6 +40,12 @@ from .voxelize import compact_ascending
 INT_MAX = 2 ** 31 - 1
 
 
+def key_dtype(pair_keys: bool) -> torch.dtype:
+    """The cell keys' type: int64 where the reference keeps pairs of
+    int32 keys, else int32."""
+    return torch.int64 if pair_keys else torch.int32
+
+
 @functools.lru_cache(maxsize=None)
 def offsets(reach: int) -> np.ndarray:
     """The (R, 3) int32 neighbour offsets within ``reach`` cells, centre
@@ -59,19 +70,17 @@ def cell_cluster_csr(shifted: torch.Tensor, group: torch.Tensor,
         (batch * n_classes + class); valid: (N,) bool; payload: (N,) int
         carried through the sort; thr_of_group: (n_classes,) f32 minimum
         component size per class (looked up as group % n_classes).
+      pair_keys: int64 cell keys (True) or int32 (False).
     Returns:
       (ent_label, payload_s): (N,) int32 in sorted-entry order; ent_label is
       the component id in cell-index space, -1 for invalid, dropped or
       below-threshold entries.
     """
-    if pair_keys:
-        raise NotImplementedError(
-            'pair_keys=True grouping (ops/keys.py in the reference) is not '
-            'ported yet; set grouping_cfg.pair_keys=False')
     n = shifted.shape[0]
     m = m_cap or n
     core = _cell_core(shifted, group, valid, payload.to(torch.int32),
-                      radius, cell_scale, max_rounds, m)
+                      radius, cell_scale, max_rounds, m,
+                      key_dtype(pair_keys))
     clab, cnt, cell_valid = core['clab'], core['cnt'], core['cell_valid']
     sizes = cnt.new_zeros((m + 1,)).index_add_(0, clab.long().clamp(0, m),
                                                cnt)
@@ -90,10 +99,11 @@ def cell_cluster_csr(shifted: torch.Tensor, group: torch.Tensor,
 
 
 def _cell_core(shifted, group, valid, payload, radius, cell_scale,
-               max_rounds, m):
+               max_rounds, m, kdt):
     """Bucket, sort (carrying ``payload``), build per-cell tables, join
-    neighbour cells, propagate labels.  Returns sorted-space and cell-space
-    tensors."""
+    neighbour cells, propagate labels, on cell keys of type ``kdt`` (int32
+    or int64; every factor is cast before the products).  Returns
+    sorted-space and cell-space tensors."""
     n = shifted.shape[0]
     dev = shifted.device
     s = float(np.float32(radius) * np.float32(cell_scale))
@@ -105,14 +115,16 @@ def _cell_core(shifted, group, valid, payload, radius, cell_scale,
     cell = torch.floor((shifted - mn[None, :]) / s).to(torch.int32)
     cell = cell.clamp(min=0)
     dims = torch.where(valid[:, None], cell, 0).amax(dim=0) + 2   # (3,)
-    lo = (((group.to(torch.int32) * dims[0] + cell[:, 0]) * dims[1]
-           + cell[:, 1]) * dims[2] + cell[:, 2])
-    lo = torch.where(valid, lo, INT_MAX)
+    key_max = torch.iinfo(kdt).max
+    ck, dk = cell.to(kdt), dims.to(kdt)
+    lo = (((group.to(kdt) * dk[0] + ck[:, 0]) * dk[1] + ck[:, 1]) * dk[2]
+          + ck[:, 2])
+    lo = torch.where(valid, lo, key_max)
 
     lo_s, order = torch.sort(lo, stable=True)
     payload_s = payload[order]
     pts_s = shifted[order]                                         # (N, 3)
-    valid_s = lo_s != INT_MAX
+    valid_s = lo_s != key_max
     prev_lo = torch.cat([lo_s.new_full((1,), -1), lo_s[:-1]])
     first = valid_s & (lo_s != prev_lo)
     cid_s = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
@@ -125,7 +137,7 @@ def _cell_core(shifted, group, valid, payload, radius, cell_scale,
     n_cells_m = n_cells.clamp(max=m)
     cell_valid = (fp < n) & (arange_m < n_cells_m)
     fpc = fp.clamp(max=n - 1).long()
-    clo = torch.where(cell_valid, lo_s[fpc], INT_MAX)
+    clo = torch.where(cell_valid, lo_s[fpc], key_max)
     lp = torch.cat([fpc[1:], fpc.new_zeros((1,))])
     lp = torch.where(arange_m == n_cells_m - 1, n_valid.long(),
                      torch.where(cell_valid, lp, 1)) - 1
@@ -164,7 +176,6 @@ def _cell_core(shifted, group, valid, payload, radius, cell_scale,
         if not changed:
             break
 
-    cell_group = torch.where(cell_valid,
-                             clo // (dims[0] * dims[1] * dims[2]), 0)
+    cell_group = torch.where(cell_valid, clo // (dk[0] * dk[1] * dk[2]), 0)
     return dict(payload_s=payload_s, cid_s=cid_s, clab=lab, cnt=cnt, cell_valid=cell_valid,
                 cell_group=cell_group)

@@ -2,10 +2,13 @@
 of the training proposal grids.
 
 Replaces ``softgroup_tpu/ops/join_kernel.py:_join_kernel`` (driven by
-``cell_neighbor_join``), called from ``grouping._cell_core`` on
-``pair_keys=False`` configs.  A thread of K3 takes a cell and a run of
-offsets (one (dx, dy), rising dz), searches the run's first key in the rows
-that unique keys leave for it and steps forward for the rest (design note:
+``cell_neighbor_join``), called from ``grouping._cell_core`` on int32 cell
+keys (``pair_keys=False`` configs) and on int64 keys (``pair_keys=True``:
+the reference joins its pairs of int32 keys through ``keys.lookup``, a sort
+join, then gates by centroid distance; the int64 instance computes that
+lookup and the gate).  A thread of K3 takes a cell and a run of offsets
+(one (dx, dy), rising dz), searches the run's first key in the rows that
+unique keys leave for it and steps forward for the rest (design note:
 ``csrc/join.cu``).
 
 On a CUDA tensor the wrapper launches the kernel or raises; on a CPU tensor
@@ -54,19 +57,27 @@ def _d_lin(offs_t: torch.Tensor, dims: torch.Tensor) -> torch.Tensor:
     return (offs_t[:, 0] * dims[1] + offs_t[:, 1]) * dims[2] + offs_t[:, 2]
 
 
+def key_sentinel(keys: torch.Tensor) -> int:
+    """The padding key of a K3 table: the largest value of its type."""
+    return torch.iinfo(keys.dtype).max
+
+
 def cell_neighbor_join_plain(table_keys, centroid, ccoord, dims, offs,
                              radius) -> torch.Tensor:
     """(R, m) int32: see ``cell_neighbor_join``."""
     m = table_keys.shape[0]
     dev = table_keys.device
+    kdt = table_keys.dtype
+    sentinel = key_sentinel(table_keys)
     offs_t = torch.tensor(np.asarray(offs, np.int32), device=dev)
     dims = dims.to(torch.int32)
     ct = ccoord.T[None]                                  # (1, 3, m)
-    ok = ((table_keys != INT_MAX)[None, :]
+    ok = ((table_keys != sentinel)[None, :]
           & (offs_t[:, :, None] + ct >= 0).all(dim=1)
           & (offs_t[:, :, None] <= dims[None, :, None] - 1 - ct).all(dim=1))
-    q = torch.where(ok, table_keys[None, :] + _d_lin(offs_t, dims)[:, None],
-                    torch.full_like(table_keys, INT_MAX)[None, :])
+    d_lin = _d_lin(offs_t.to(kdt), dims.to(kdt))
+    q = torch.where(ok, table_keys[None, :] + d_lin[:, None],
+                    torch.full_like(table_keys, sentinel)[None, :])
     pos = torch.searchsorted(table_keys, q.reshape(-1)).reshape(q.shape)
     pc = pos.clamp(0, m - 1)
     hit = ok & (pos < m) & (table_keys[pc] == q)
@@ -87,22 +98,28 @@ def cell_neighbor_join(table_keys: torch.Tensor, centroid: torch.Tensor,
     bounds test ``0 <= ccoord[i] + offs[r] < dims`` passed, and
     ``|centroid[i] - centroid[j]|^2 <= radius^2``; else -1.
 
-    table_keys: (m,) int32 linear cell keys ((x*dims1 + y)*dims2 + z, the
-    group folded into x), sorted, unique among valid rows, INT_MAX padded.
+    table_keys: (m,) int32 or int64 linear cell keys ((x*dims1 + y)*dims2
+    + z, the group folded into x), sorted, unique among valid rows, padded
+    with the type's largest value; the queries are summed in that type.
     centroid (m, 3) f32; ccoord (m, 3) int32; dims (3,) int32 tensor (stays
     on the device: no host sync); offs (R, 3) integer offsets.
     Returns (R, m) int32, exact.  ``stats``: an optional zeroed (2,) int32
     tensor on the card that the kernel fills with the widest bracket it
     searched and the count of queries it searched for over the whole table
     (duplicate keys, or a sum beyond int32; the census of
-    ``time_kernels``).
+    ``time_kernels``).  ``launches64`` counts the launches on int64 keys
+    (within ``launches``).
     """
     if table_keys.device.type == 'cpu':
         return cell_neighbor_join_plain(table_keys, centroid, ccoord, dims,
                                         offs, radius)
     dev = table_keys.device
+    wide = table_keys.dtype == torch.int64
+    if not wide and table_keys.dtype != torch.int32:
+        raise ValueError(f'cell_neighbor_join: int32 or int64 keys, got '
+                         f'{table_keys.dtype}')
     keys, cen, cc, dm = (_as(t, d) for t, d in (
-        (table_keys, torch.int32), (centroid, torch.float32),
+        (table_keys, table_keys.dtype), (centroid, torch.float32),
         (ccoord, torch.int32), (dims, torch.int32)))
     kernels.require_cuda('cell_neighbor_join', keys, cen, cc, dm,
                          *(() if stats is None else (stats,)))
@@ -110,17 +127,19 @@ def cell_neighbor_join(table_keys: torch.Tensor, centroid: torch.Tensor,
     plan = _k3_plan(offs)
     m = keys.shape[0]
     out = torch.empty((int(plan[0]), m), dtype=torch.int32, device=dev)
-    rc = kernels.entry('join', 'sg_cell_join')(
+    rc = kernels.entry('join', 'sg_cell_join64' if wide else 'sg_cell_join')(
         keys.data_ptr(), cen.data_ptr(), cc.data_ptr(), dm.data_ptr(),
         plan.ctypes.data, m, radius_sq(radius),
         _K3_BLOCK or 64, out.data_ptr(),
         None if stats is None else stats.data_ptr(), kernels.stream(dev))
     kernels.check(rc, 'cell_neighbor_join')
     cell_neighbor_join.launches += 1
+    cell_neighbor_join.launches64 += int(wide)
     return out
 
 
 cell_neighbor_join.launches = 0
+cell_neighbor_join.launches64 = 0
 
 
 def sorted_key_rules_join_plain(table_keys, xyz, dims, offs) -> torch.Tensor:

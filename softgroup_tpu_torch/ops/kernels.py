@@ -48,6 +48,8 @@ SIGNATURES = {
                'sg_segment_sum': (_P, _P, _LL, _I, _I, _I, _I, _I, _P, _P,
                                   _P, _P)},
     'join': {'sg_cell_join': (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P),
+             'sg_cell_join64': (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P,
+                                _P),
              'sg_rules_join': (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P)},
 }
 

@@ -35,10 +35,11 @@ table beyond it), each with ``device_ms``, bound and error against plain,
 plus one synthetic case each at a trained model's fill
 (``k6_trained_fill``, ``k7_trained_fill``); ``--k6-rows`` / ``--k7-tile``
 re-time them at other rows per K6 chunk / rows per K7 tile.  K3's census
-has the request's call (m = 16384) and the train step's (m = 131072): m,
-valid cells, ``dims``, the key windows of each dx group at every tile
-size, hits and gated-in queries, the kernel's own bracket figures, device
-ms, bound and host us; ``--k3-block`` re-times it at other block sizes.
+has the request's call (m = 16384) and the train step's (m = 131072), and
+each again on int64 keys (the same cells through the 64-bit instance of
+the pair-key configs; in a package that has it): m, valid cells, ``dims``, the key windows of each dx group at every tile size, hits
+and gated-in queries, the kernel's own bracket figures, device ms, bound
+and host us; ``--k3-block`` re-times it at other block sizes.
 
 ``--fill`` times the deep K1 cases and K4's at several values of
 ``conv_kernel._K1_FILL_BLOCKS`` / ``_K4_FILL_BLOCKS`` (the grid size below
@@ -291,34 +292,45 @@ def k4_args(calls: list) -> dict:
     }
 
 
-def plus_args(calls: dict, caps, n_heads: int) -> dict:
-    """The K1, K2 and K4 cases of ``chip_smoke.py``'s SoftGroup++ request,
-    as (args, kwargs) by label, from its recorded calls (``caps``: its
-    bucketed capacities; ``n_heads``: the semantic classes + 3, the width
-    of the heads gather): the backbone on the level-0 voxels, the gather
-    of both heads to the points, grouping on voxel entries and
-    refinement on voxel proposals."""
+def request_args(calls: dict, caps, tag: str,
+                 n_heads: int | None = None) -> dict:
+    """The K1, K2 and K4 cases of one request of ``chip_smoke.py`` beyond
+    the flagship's, as (args, kwargs) by label (``tag`` after the kernel),
+    from its recorded calls (``caps``: its bucketed capacities): the
+    backbone's level 0, grouping and refinement.  ``n_heads`` (the
+    semantic classes + 3): a SoftGroup++ request, whose heads are gathered
+    to the points in one (V0, n_heads) f32 gather and whose grouping
+    entries are voxels; None: a request that devoxelizes (V0, 32) bf16
+    features and groups points (the S3DIS request, its x4_split parts in
+    one level-0 grid)."""
     import torch
     conv, gather = calls['rulebook_conv'], calls['row_gather']
     v0, p, m = caps.voxels[0], caps.grouping_points, caps.grouping_cells
+    rows, rname = (v0, 'V0') if n_heads else (caps.points, 'N')
     out = {
-        f'K1 ++ L0 subm 32->32 bf16 (V0={v0})': pick(
+        f'K1 {tag} L0 subm 32->32 bf16 (V0={v0})': pick(
             conv, lambda a, k: a[2].shape == (27, v0)
-            and a[1].shape[1:] == (32, 32), '++ L0 subm'),
-        f'K1 ++ input conv 6->32 bf16 (V0={v0})': pick(
-            conv, lambda a, k: a[1].shape[1] == 6, '++ input conv'),
-        f'K2 ++ heads (V0, {n_heads}) f32 (V0={v0})': pick(
-            gather, lambda a, k: a[0].dtype == torch.float32
-            and a[0].shape == (v0, n_heads), '++ heads gather'),
-        f'K2 ++ grouping entries (V0, 4) f32 -> P={p}': pick(
-            gather, lambda a, k: a[0].dtype == torch.float32
-            and a[0].shape == (v0, 4) and a[1].shape == (p,), '++ entries'),
-        f'K2 ++ cell labels (m+1,) int32 (m={m})': pick(
-            gather, lambda a, k: a[0].dim() == 1
-            and a[0].shape[0] == m + 1, '++ labels'),
+            and a[1].shape[1:] == (32, 32), f'{tag} L0 subm'),
+        f'K1 {tag} input conv 6->32 bf16 (V0={v0})': pick(
+            conv, lambda a, k: a[1].shape[1] == 6, f'{tag} input conv'),
     }
+    if n_heads:
+        out[f'K2 {tag} heads (V0, {n_heads}) f32 (V0={v0})'] = pick(
+            gather, lambda a, k: a[0].dtype == torch.float32
+            and a[0].shape == (v0, n_heads), f'{tag} heads gather')
+    else:
+        out[f'K2 {tag} devoxelize (V0, 32) bf16 (V0={v0})'] = pick(
+            gather, lambda a, k: a[0].dtype == torch.bfloat16
+            and a[0].shape == (v0, 32), f'{tag} devoxelize')
+    out[f'K2 {tag} grouping entries ({rname}, 4) f32 -> P={p}'] = pick(
+        gather, lambda a, k: a[0].dtype == torch.float32
+        and a[0].shape == (rows, 4) and a[1].shape == (p,),
+        f'{tag} entries')
+    out[f'K2 {tag} cell labels (m+1,) int32 (m={m})'] = pick(
+        gather, lambda a, k: a[0].dim() == 1 and a[0].shape[0] == m + 1,
+        f'{tag} labels')
     for label, args in k4_args(calls['keyed_conv']).items():
-        out[f'K4 ++ {label[3:]}'] = args
+        out[f'K4 {tag} {label[3:]}'] = args
     return out
 
 
@@ -416,6 +428,24 @@ def cell_join_bound(keys, centroid, ccoord, dims, n_off: int):
 JOIN_TILES = (32, 64, 128, 256)
 
 
+def key_pad(keys) -> int:
+    """The padding key of a K3 table (its type's largest value; int32's in
+    a package whose K3 takes int32 keys only)."""
+    from softgroup_tpu_torch.ops import join_kernel as jk
+    pad = getattr(jk, 'key_sentinel', None)
+    return pad(keys) if pad is not None else 2 ** 31 - 1
+
+
+def widened(args):
+    """A recorded K3 call's arguments with its int32 keys as int64 keys
+    (int64 max padded): the same cells through the 64-bit instance."""
+    import torch
+    keys = args[0]
+    wide = torch.where(keys == 2 ** 31 - 1, torch.iinfo(torch.int64).max,
+                       keys.long())
+    return [wide, *args[1:]]
+
+
 def k3_windows(keys, dims, offs, tile: int) -> list[tuple[int, int, float]]:
     """The key windows a block of ``tile`` consecutive cells would stage
     for K3 (one a dx, as the TPU kernel and K7 stage theirs): for each dx
@@ -426,11 +456,11 @@ def k3_windows(keys, dims, offs, tile: int) -> list[tuple[int, int, float]]:
     import numpy as np
     import torch
     k = keys.long()
+    pad = key_pad(keys)
     m = k.shape[0]
     n_t = -(-m // tile)
-    kt = torch.cat([k, k.new_full((n_t * tile - m,), 2 ** 31 - 1)]).view(
-        n_t, tile)
-    valid = kt != 2 ** 31 - 1
+    kt = torch.cat([k, k.new_full((n_t * tile - m,), pad)]).view(n_t, tile)
+    valid = kt != pad
     live = valid[:, 0]
     kmin = kt[:, 0][live]
     kmax = torch.where(valid, kt, -2 ** 62).amax(1)[live]
@@ -469,7 +499,7 @@ def k3_census(cases: list, lbl: str, card: str, blocks: list,
     block0 = getattr(jk, '_K3_BLOCK', None)
     for label, a, _ in cases:
         keys, cen, cc, dims, offs, radius = a
-        valid = int((keys != 2 ** 31 - 1).sum())
+        valid = int((keys != key_pad(keys)).sum())
         hits = int((jk.cell_neighbor_join_plain(
             keys, cen, cc, dims, offs, float('inf')) >= 0).sum())
         gated = int((jk.cell_neighbor_join_plain(*a) >= 0).sum())
@@ -744,6 +774,7 @@ def main() -> None:
     from softgroup_tpu_torch.model import softgroup as sg
     from softgroup_tpu_torch.ops import conv_kernel as ck
     from softgroup_tpu_torch.ops import gather_kernel as gk
+    from softgroup_tpu_torch.ops import join_kernel as jk
     from softgroup_tpu_torch.ops import (grouping, kernels, rulebook,
                                          sparse_conv)
     if not torch.cuda.is_available():
@@ -844,6 +875,9 @@ def main() -> None:
     if 'k3' in families:
         k3_cases += [(f'train step m={a[0].shape[0]}', a, 1)
                      for a, _ in tcalls['cell_neighbor_join']]
+        if hasattr(jk, 'key_sentinel'):   # a package with the int64 K3
+            k3_cases += [(f'{label} int64 keys', widened(a), n)
+                         for label, a, n in list(k3_cases)]
         k3_census(k3_cases, lbl, card, values(args.k3_block),
                   args.device_only)
     if 'k6' in families:

@@ -1,13 +1,14 @@
-"""Single-scene inference runner (counterpart of
-``softgroup_tpu/tools_impl/test_runner.py``: ``bucketed_caps`` and
-``InferenceRunner``).
+"""Inference runner and evaluation loop (counterpart of
+``softgroup_tpu/tools_impl/test_runner.py``: ``bucketed_caps``,
+``InferenceRunner``, ``run_eval`` and ``summarize``).
 
 A request is ``run_scene(data)`` on one collated scan: the host batch at
 per-scene bucketed capacities (``build_batch``, native host geometry), the
 device forward (``test_forward``, or ``test_forward_plus`` when
 ``test_cfg.lvl_fusion`` is set), then the host postprocess in the scan's
-original point order.  The evaluators (``run_eval`` / ``summarize``) and
-panoptic fusion are not ported yet.
+original point order.  ``run_eval`` runs every scan of a config's test
+split through it and ``summarize`` scores them (instance AP, mIoU,
+accuracy, offset MAE).  Panoptic fusion is not ported yet.
 """
 
 from __future__ import annotations
@@ -17,10 +18,16 @@ import time
 import numpy as np
 import torch
 
+from ..data.loader import build_dataloader, build_dataset
 from ..data.padding import build_scene_batch, round_capacity
+from ..evaluation.instance_eval import ScanNetEval
+from ..evaluation.point_wise_eval import (evaluate_offset_mae,
+                                          evaluate_semantic_acc,
+                                          evaluate_semantic_miou)
 from ..evaluation.postprocess import get_gt_instances, get_instances, to_numpy
 from ..model.softgroup import Capacities
 from ..ops.geometry import host_geometry
+from ..util.config import getattr_or
 
 
 def bucketed_caps(n_points: int, voxel_counts, base: Capacities,
@@ -86,14 +93,16 @@ class InferenceRunner:
         """One scan's results, per point in the scan's original order.
 
         ``stats``, when given, receives the capacities (``caps``), the
-        proposal count and the host clock of each stage in ms
-        (``host_batch_ms``, ``forward_ms`` with the device synchronised,
-        ``postprocess_ms``: the copy to the host and the instances)."""
+        points and level-0 voxels (``n_points``, ``n_voxels``), the
+        proposal and instance counts and the host clock of each stage in
+        ms (``host_batch_ms``, ``forward_ms`` with the device
+        synchronised, ``postprocess_ms``: the copy to the host and the
+        instances)."""
         tasks = self.cfg.test_cfg.eval_tasks
         if 'panoptic' in tasks:
             raise NotImplementedError(
-                'panoptic fusion waits for the pair_keys grouping slice '
-                '(ops/keys.py) and is not ported')
+                'panoptic fusion waits for the KITTI panoptic slice '
+                '(panoptic_fusion and its evaluator) and is not ported')
         scan_id = data['scan_ids'][0]
         n = len(data['coords'])
         t0 = time.perf_counter()
@@ -156,5 +165,65 @@ class InferenceRunner:
             stats.update(
                 caps=caps, n_proposals=int(out.get('n_proposals', 0)),
                 host_batch_ms=(t1 - t0) * 1e3, forward_ms=(t2 - t1) * 1e3,
-                postprocess_ms=(time.perf_counter() - t2) * 1e3)
+                postprocess_ms=(time.perf_counter() - t2) * 1e3,
+                n_points=n,
+                n_voxels=int(batch.pyramid.levels[0].vox_valid.sum()),
+                n_instances=len(ret.get('pred_instances', ())))
         return ret
+
+
+def run_eval(net, cfg, base_caps: Capacities, num_levels: int, logger=None,
+             max_scenes: int | None = None, device='cuda',
+             scene_stats: list | None = None) -> dict:
+    """Every scan of ``cfg.data.test`` through the runner of ``net`` (on
+    ``device`` already), then ``summarize``: a flat metric dict.
+    ``scene_stats``, when given, receives each scan's ``run_scene``
+    stats."""
+    dataset = build_dataset(cfg.data.test, logger)
+    loader = build_dataloader(dataset, batch_size=1,
+                              num_workers=cfg.dataloader.test.num_workers,
+                              training=False)
+    runner = InferenceRunner(net, cfg.model, base_caps, num_levels,
+                             device=device)
+    results = []
+    for i, data in enumerate(loader):
+        if max_scenes and i >= max_scenes:
+            break
+        st = {} if scene_stats is not None else None
+        results.append(runner.run_scene(data, stats=st))
+        if st is not None:
+            scene_stats.append(st)
+    return summarize(results, cfg, dataset, logger)
+
+
+def summarize(results: list, cfg, dataset, logger=None) -> dict:
+    """Instance AP / AP_50 / AP_25 (the ScanNet protocol) and the
+    point-wise mIoU, accuracy and offset MAE of ``run_scene`` results, as
+    the config's ``eval_tasks`` ask."""
+    out = {}
+    tasks = cfg.model.test_cfg.eval_tasks
+    # the evaluator's gt size gate is the top-level eval_min_npoint (kitti
+    # 50, stpls3d 10, else the protocol's default), not test_cfg.min_npoint,
+    # which gates instance extraction
+    eval_min_npoint = getattr_or(cfg, 'eval_min_npoint', None)
+    if 'instance' in tasks and results and 'pred_instances' in results[0]:
+        ev = ScanNetEval(dataset.CLASSES, min_npoint=eval_min_npoint)
+        avgs = ev.evaluate([r['pred_instances'] for r in results],
+                           [r['gt_instances'] for r in results])
+        if logger:
+            ev.print_results(avgs)
+        out.update(AP=avgs['all_ap'], AP_50=avgs['all_ap_50%'],
+                   AP_25=avgs['all_ap_25%'])
+    if 'semantic' in tasks and results and 'semantic_preds' in results[0]:
+        ignore = cfg.model.ignore_label
+        sem_pred = np.concatenate([r['semantic_preds'] for r in results])
+        sem_gt = np.concatenate([r['semantic_labels'] for r in results])
+        out['mIoU'] = evaluate_semantic_miou(sem_pred, sem_gt, ignore,
+                                             logger)
+        out['Acc'] = evaluate_semantic_acc(sem_pred, sem_gt, ignore, logger)
+        off_pred = np.concatenate([r['offset_preds'] for r in results])
+        off_gt = np.concatenate([r['offset_labels'] for r in results])
+        inst_gt = np.concatenate([r['instance_labels'] for r in results])
+        out['Offset_MAE'] = evaluate_offset_mae(off_pred, off_gt, inst_gt,
+                                                ignore, logger)
+    return out

@@ -315,6 +315,83 @@ def test_cell_join_cases(dev, monkeypatch, case, block):
         assert hits > 0 and whole > 0
 
 
+def _cell_input64(case: str):
+    """(keys, centroid, ccoord, dims, radius) of one K3 card case on int64
+    keys (int64 max padded): the int32 cases' cells widened, 13 groups of
+    blocks of cells on an 80 m x 80 m x 4 m grid at 0.04 m (keys past
+    2^31), and a grid whose d1 * d2 passes 2^31 (dx = +-1 brackets of
+    2^32 rows, clamped to the table)."""
+    radius = 0.04
+    if case in ('scan layout', 'duplicate keys', 'all padding'):
+        keys, cen, cc, dims, radius = _cell_input(case)
+        k = keys.astype(np.int64)
+        k[keys == INT_MAX] = np.iinfo(np.int64).max
+        return k, cen, cc, dims, radius
+    rng = np.random.RandomState(len(case))
+    d = (np.array([2002, 2002, 102]) if case == 'past int32'
+         else np.array([40, 70000, 70000]))
+    blocks = []
+    for _ in range(300):   # 5^3 blocks of cells, 13 groups folded into x
+        g = rng.randint(13)
+        lo = rng.randint(0, d - 5)
+        cube = np.stack(np.meshgrid(*[np.arange(5)] * 3, indexing='ij'),
+                        -1).reshape(-1, 3) + lo
+        cube = cube[rng.rand(len(cube)) < 0.7]
+        blocks.append(np.concatenate([np.full((len(cube), 1), g), cube], 1))
+    gc = np.unique(np.concatenate(blocks), axis=0)
+    key = ((gc[:, 0] * d[0] + gc[:, 1]) * d[1] + gc[:, 2]) * d[2] + gc[:, 3]
+    order = np.argsort(key)
+    key, cc = key[order], gc[order, 1:]
+    cen = ((cc + 0.5 + 0.6 * (rng.rand(*cc.shape) - 0.5))
+           * 0.04).astype(np.float32)
+    m = len(key) + 1001
+    keys = np.full(m, np.iinfo(np.int64).max, np.int64)
+    keys[:len(key)] = key
+    ccoord = np.zeros((m, 3), np.int32)
+    ccoord[:len(key)] = cc
+    centroid = np.zeros((m, 3), np.float32)
+    centroid[:len(key)] = cen
+    return keys, centroid, ccoord, d.astype(np.int32), radius
+
+
+@pytest.mark.parametrize('block', [32, 64, 256])
+@pytest.mark.parametrize('case', ['scan layout', 'past int32',
+                                  'd1 d2 past int32', 'duplicate keys',
+                                  'all padding'])
+def test_cell_join_int64(dev, monkeypatch, case, block):
+    """K3 on int64 keys (``sg_cell_join64``) equal to its plain version:
+    the room scan's cells widened (equal to the int32 kernel's result too),
+    keys past 2^31 in 13 groups, a grid whose d1 * d2 passes 2^31,
+    duplicate keys (searched over the whole table) and an all-padding
+    table; the launch is counted as an int64 one."""
+    monkeypatch.setattr(jk, '_K3_BLOCK', block)
+    keys, cen, cc, dims, radius = _cell_input64(case)
+    args = [torch.from_numpy(a).to(dev) for a in (keys, cen, cc, dims)]
+    stats = torch.zeros(2, dtype=torch.int32, device=dev)
+    n64 = jk.cell_neighbor_join.launches64
+    got = jk.cell_neighbor_join(*args, offsets(1), radius, stats=stats)
+    assert jk.cell_neighbor_join.launches64 == n64 + 1
+    want = jk.cell_neighbor_join_plain(*args, offsets(1), radius)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    gated = int((want >= 0).sum())
+    widest, whole = (int(v) for v in stats.cpu())
+    if case == 'scan layout':
+        k32, *rest = _cell_input(case)
+        a32 = [torch.from_numpy(a).to(dev) for a in (k32, *rest[:3])]
+        assert torch.equal(got, jk.cell_neighbor_join(*a32, offsets(1),
+                                                      radius))
+    if case == 'all padding':
+        assert gated == 0 and whole == 0
+    elif case == 'duplicate keys':
+        assert gated > 0 and whole > 0
+    else:
+        assert gated > 0 and whole == 0
+    if case in ('past int32', 'd1 d2 past int32'):
+        assert int(keys[keys < np.iinfo(np.int64).max].max()) > 2 ** 31
+    if case == 'd1 d2 past int32':
+        assert int(dims[1]) * int(dims[2]) > 2 ** 31
+
+
 @pytest.mark.parametrize('offs_kind', ['reach 2', 'shuffled', 'one offset',
                                        'repeated'])
 def test_cell_join_offset_sets(dev, offs_kind):

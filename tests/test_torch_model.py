@@ -182,7 +182,8 @@ def test_port_imports_no_jax():
         'bad = [m for m in sys.modules if m.split(".")[0] in\n'
         '       ("jax", "jaxlib", "flax", "softgroup_tpu")]\n'
         'assert not bad, bad\n'
-        'for name in ("entry", "ops.native", "tools_impl.test_runner"):\n'
+        'for name in ("entry", "ops.native", "tools_impl.test_runner",\n'
+        '             "data.s3dis", "evaluation.instance_eval"):\n'
         '    assert "softgroup_tpu_torch." + name in sys.modules, name\n')
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
@@ -248,7 +249,7 @@ def test_time_kernels_finds_plus_cases():
     from softgroup_tpu_torch.model import softgroup as sg
     from softgroup_tpu_torch.ops import gather_kernel, grouping, sparse_conv
     from softgroup_tpu_torch.model import blocks
-    from softgroup_tpu_torch.time_kernels import Recorder, plus_args
+    from softgroup_tpu_torch.time_kernels import Recorder, request_args
     base = Capacities(
         points=16384, voxels=(16384, 8192, 4096, 2048, 1024, 512, 256),
         grouping_points=32768, proposals=32, proposal_entries=32768,
@@ -270,7 +271,7 @@ def test_time_kernels_finds_plus_cases():
         runner.run_scene(data, stats=stats)
     caps = stats['caps']
     assert caps.voxels[0] < base.voxels[0]   # bucketed on the scan
-    cases = plus_args(rec.calls, caps, cfg.semantic_classes + 3)
+    cases = request_args(rec.calls, caps, '++', cfg.semantic_classes + 3)
     assert [k.split(' ')[0] for k in cases] == ['K1'] * 2 + ['K2'] * 3 \
         + ['K4'] * 2
     v0 = caps.voxels[0]

@@ -288,14 +288,6 @@ class TestGrouping:
         np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
         assert len(np.unique(tl.numpy()[tl.numpy() >= 0])) > 5
 
-    def test_pair_keys_not_ported(self):
-        z = torch.zeros((4, 3))
-        with pytest.raises(NotImplementedError):
-            grp.cell_cluster_csr(z, torch.zeros(4, dtype=torch.int32),
-                                 torch.ones(4, dtype=torch.bool),
-                                 torch.zeros(4, dtype=torch.int32),
-                                 torch.ones(1), 0.1, pair_keys=True)
-
 
 # The (K, V_out, Cin, Cout) of the 79 K5 calls of one all-params train step
 # of the flagship config (entry.train_cfg / train_capacities): every shape

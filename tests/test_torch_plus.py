@@ -381,7 +381,7 @@ def test_run_scene_panoptic_raises(data, models):
     cfg = tiny_cfg(dict(TINY, test_cfg=dict(
         TINY['test_cfg'], eval_tasks=['semantic', 'instance', 'panoptic'])))
     runner = InferenceRunner(net, cfg, Capacities(**CAPS), 3, device='cpu')
-    with pytest.raises(NotImplementedError, match='pair_keys'):
+    with pytest.raises(NotImplementedError, match='KITTI panoptic'):
         runner.run_scene(data)
 
 
