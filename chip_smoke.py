@@ -43,6 +43,17 @@ non-zero):
      stage times and the metrics; K3's census on the request's int64 keys;
      one request's forward under the profiler; and a small x4_split room
      through the runner on the card (f32) against the CPU;
+  3d. the SemanticKITTI panoptic path: two ray-cast ~120k-point sweeps
+     (seeds 400-401) written as sequence 08 scans beside the dataset's
+     metadata, the KITTI yaml's net at full width (Cin 1, with_coords off,
+     int64 cell keys) with seeded weights written as a ``.pth`` in the
+     reference's layout, then the test CLI (``tools_impl.test_cli.main``:
+     the weight import, the runner, ``panoptic_fusion``, ``PanopticEval``,
+     the ``.label`` writer), counters set to 0 just before and read just
+     after, with each scan's caps, cells, stage times and counts, the
+     metrics and the ``.label`` files checked; K3's int64 census; one
+     request's forward under the profiler; and a small sweep through the
+     runner on the card (f32) against the CPU;
   4. the training path: the flagship ScanNet train step (the yaml's model
      section, batch 4 x 250k-point rooms, bf16) in both modes of the recipe
      (frozen backbone, then all params), 1 warm-up and 3 timed steps each,
@@ -71,6 +82,11 @@ TRAIN_SEED0 = 200
 # the S3DIS phase's two rooms (seeds 300-301) and their points
 S3DIS_SEED0 = 300
 S3DIS_POINTS = 1000000
+# the KITTI phase's two sweeps (seeds 400-401): 64 beams x 1900 azimuth
+# steps (~120k points, an HDL-64E sweep); a small sweep of 320 steps
+KITTI_SEED0 = 400
+KITTI_AZIMUTH = 1900
+KITTI_SMALL_AZIMUTH = 320
 SEMANTIC_BIAS = 2.5
 # a train-step gradient leaf's card-vs-CPU gap over the same leaf's gap
 # with the plain versions on the card
@@ -290,6 +306,25 @@ def main() -> int:
     if sstats['n_proposals'] <= 0:
         raise RuntimeError('warm-up S3DIS request produced no proposals')
 
+    # the SemanticKITTI request: the first of two ray-cast sweeps written
+    # as sequence 08 scans, through the dataset and the KITTI yaml's runner
+    kitti_dir = tempfile.TemporaryDirectory(prefix='kitti_')
+    t = time.perf_counter()
+    kcfg = kitti_scans(kitti_dir.name)
+    log(f'[warmup] 2 SemanticKITTI sweeps ({KITTI_AZIMUTH} azimuth steps) '
+        f'written in {time.perf_counter() - t:.3f} s')
+    knet = kitti_lift(entry.build_net(kcfg.model, seed=0, device=dev,
+                                      bf16=True))
+    krunner = entry.build_s3dis_runner(knet, kcfg)
+    kdata = first_scan(kcfg)
+    with Recorder(sites) as krec:
+        kstats = {}
+        krunner.run_scene(kdata, stats=kstats)
+    log(f'[warmup] KITTI request done: caps={kstats["caps"]}, '
+        f'n_proposals={kstats["n_proposals"]}')
+    if kstats['n_proposals'] <= 0:
+        raise RuntimeError('warm-up KITTI request produced no proposals')
+
     train_batches = [make_train_batch(i) for i in range(TRAIN_STEPS + 1)]
     log(f'[warmup] {len(train_batches)} host batches of 4 x 250k points: '
         f'{[round(b[1], 3) for b in train_batches]} ms')
@@ -409,6 +444,12 @@ def main() -> int:
         raise RuntimeError(f'the S3DIS request joined {s3dis_join[0].dtype} '
                            f'cell keys, not int64')
     join_case(s3dis_join, 's3dis')
+    # the KITTI request's, on int64 keys over its outdoor grid
+    kitti_join = krec.calls['cell_neighbor_join'][0][0]
+    if kitti_join[0].dtype != torch.int64:
+        raise RuntimeError(f'the KITTI request joined {kitti_join[0].dtype} '
+                           f'cell keys, not int64')
+    join_case(kitti_join, 'kitti')
 
     def keyed_case(label, args, kw, path='serving'):
         feats, w, out_keys, in_keys, d = args
@@ -435,14 +476,16 @@ def main() -> int:
     for label, (a, kw) in k4_args(keyed_calls).items():
         keyed_case(label[3:], a, kw)
 
-    # the K1, K2 and K4 calls of the SoftGroup++ request and of the S3DIS
-    # request (x4_split: four parts in one level-0 grid) at their caps
-    for path, calls, rcaps, tag, n_heads in (
+    # the K1, K2 and K4 calls of the SoftGroup++ request, of the S3DIS
+    # request (x4_split: four parts in one level-0 grid) and of the KITTI
+    # request (the input conv at Cin 1) at their caps
+    for path, calls, rcaps, tag, n_heads, cin in (
             ('serving_plus', prec.calls, pstats['caps'], '++',
-             pcfg.semantic_classes + 3),
-            ('s3dis', srec.calls, sstats['caps'], 's3dis', None)):
-        for label, (a, kw) in request_args(calls, rcaps, tag,
-                                           n_heads).items():
+             pcfg.semantic_classes + 3, 6),
+            ('s3dis', srec.calls, sstats['caps'], 's3dis', None, 6),
+            ('kitti', krec.calls, kstats['caps'], 'kitti', None, 1)):
+        for label, (a, kw) in request_args(calls, rcaps, tag, n_heads,
+                                           cin).items():
             fam, label = label.split(' ', 1)
             if fam == 'K1':
                 conv_case(label, a, torch.bfloat16, path)
@@ -705,6 +748,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done('S3DIS serving path')
 
+    # ---- phase 3d: the SemanticKITTI panoptic path ---------------------
+    kitti_counts = kitti_phase(knet, kcfg, kitti_dir.name, kitti_join,
+                               reset_counts, read_counts, card, dev)
+    del krunner, knet, kdata, kitti_join
+    kitti_dir.cleanup()
+    torch.cuda.empty_cache()
+    phase_done('KITTI panoptic path')
+
     # ---- phase 4: the training path ------------------------------------
     train_counts = {}
     for mode in (FROZEN, ALL):
@@ -807,6 +858,7 @@ def main() -> int:
         by_path = {'serving': serve_counts[key],
                    'serving_plus': plus_counts[key],
                    's3dis': s3dis_counts[key],
+                   'kitti': kitti_counts[key],
                    'train_frozen': train_counts[FROZEN][key],
                    'train_all': train_counts[ALL][key]}
         r_['launches'] = by_path[r_.pop('path')]
@@ -1115,6 +1167,356 @@ def s3dis_phase(runner, cfg, data, join_args, lift, reset_counts,
     if (sem_err > 1e-3 or off_err > 1e-3 or not p_r or p_iou < 0.99
             or not i_r or i_iou < 0.99):
         raise RuntimeError('card and CPU disagree on the small S3DIS '
+                           'request')
+    return counts
+
+
+def kitti_lift(net):
+    """A random init spreads the 19-way softmax near 1/19 < score_thr 0.2,
+    so grouping would run on nothing: lift two thing classes (11 car, 12
+    bicycle) to ~0.29 each through the semantic head's final bias (more
+    lifted classes would share the mass below the threshold)."""
+    import torch
+    with torch.no_grad():
+        net.semantic_linear.final_bias[11:13] = SEMANTIC_BIAS
+    return net
+
+
+def kitti_sweep(seed: int, n_azimuth: int = KITTI_AZIMUTH):
+    """One synthetic SemanticKITTI sweep by ray casting: a sensor 1.73 m
+    above the ground, 64 beams from -24.9 to +2 degrees, ``n_azimuth``
+    steps, returns within 80 m.  A road strip (|y| < 4 m), sidewalks (to
+    6 m), terrain beyond, façades and vegetation along both sides, poles
+    and trunks on the sidewalks, and 20-40 things each with its own
+    instance id (cars 4.5 x 1.8 x 1.5 m and trucks on the road, persons
+    and bicyclists on the sidewalks).  Returns (xyz f32 (n, 3), remission
+    f32 (n, 1), raw label int32 (n,): the raw semantic id of the yaml's
+    learning_map in the low 16 bits, the instance id in the high 16)."""
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    ground, max_range = -1.73, 80.0
+    el, az = np.meshgrid(np.deg2rad(np.linspace(-24.9, 2.0, 64)),
+                         np.linspace(-np.pi, np.pi, n_azimuth,
+                                     endpoint=False), indexing='ij')
+    d = np.stack([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az),
+                  np.sin(el)], -1).reshape(-1, 3)
+    inv = 1.0 / np.where(np.abs(d) < 1e-12, 1e-12, d)
+    t = np.full(len(d), np.inf)
+    sem = np.zeros(len(d), np.int64)
+    inst = np.zeros(len(d), np.int64)
+
+    def take(tt, ok, cls, iid=0):
+        ok &= (tt > 0) & (tt < t)
+        t[ok], sem[ok], inst[ok] = tt[ok], cls, iid
+
+    def box(lo, hi, cls, iid=0):
+        t0, t1 = lo * inv, hi * inv
+        tmin = np.minimum(t0, t1).max(1)
+        take(tmin, np.maximum(t0, t1).min(1) >= tmin, cls, iid)
+
+    def cylinder(cx, cy, r, h, cls):
+        a = d[:, 0] ** 2 + d[:, 1] ** 2
+        b = -2 * (d[:, 0] * cx + d[:, 1] * cy)
+        disc = b * b - 4 * a * (cx * cx + cy * cy - r * r)
+        tt = (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a)
+        z = tt * d[:, 2]
+        take(tt, (disc > 0) & (z > ground) & (z < ground + h), cls)
+
+    down = d[:, 2] < 0
+    tg = np.where(down, ground / np.where(down, d[:, 2], -1.0), np.inf)
+    yg = np.abs(np.where(down, tg, 0.0) * d[:, 1])
+    t[down] = tg[down]
+    sem[down] = np.where(yg < 4, 40, np.where(yg < 6, 48, 72))[down]
+    for side in (-1, 1):
+        x = -max_range
+        while x < max_range:
+            w = rng.uniform(8, 25)
+            if rng.rand() < 0.8:   # a façade 6-15 m high
+                y0, depth, h, cls = rng.uniform(10, 14), 8, \
+                    rng.uniform(6, 15), 50
+            else:                  # vegetation in the gap
+                y0, depth, h, cls = rng.uniform(7, 10), 3, \
+                    rng.uniform(1, 4), 70
+            ys = sorted((side * y0, side * (y0 + depth)))
+            box(np.array([x, ys[0], ground]), np.array([x + w, ys[1],
+                                                        ground + h]), cls)
+            x += w + rng.uniform(0, 4)
+    for _ in range(24):
+        cx = rng.uniform(-60, 60)
+        cy = rng.choice([-1, 1]) * rng.uniform(5.5, 6.5)
+        if rng.rand() < 0.5:
+            cylinder(cx, cy, 0.1, 6.0, 80)      # pole
+        else:
+            cylinder(cx, cy, 0.25, 3.0, 71)     # trunk
+    things = {'car': ((4.5, 1.8, 1.5), 10), 'truck': ((8.0, 2.5, 3.2), 18),
+              'person': ((0.5, 0.5, 1.75), 30),
+              'bicyclist': ((1.8, 0.6, 1.7), 31)}
+    for i in range(rng.randint(20, 41)):
+        size, cls = things[rng.choice(['car', 'car', 'car', 'truck',
+                                       'person', 'bicyclist'])]
+        size = np.asarray(size)
+        cx = rng.uniform(-50, 50)
+        cy = (rng.choice([-2.0, 2.0]) + rng.uniform(-0.3, 0.3)
+              if cls in (10, 18) else
+              rng.choice([-1, 1]) * rng.uniform(4.3, 5.7))
+        if abs(cx) < 3 and abs(cy) < 3:   # not on the sensor
+            cx += 6
+        lo = np.array([cx - size[0] / 2, cy - size[1] / 2, ground])
+        box(lo, lo + size, cls, i + 1)
+    keep = t <= max_range
+    n = int(keep.sum())
+    xyz = d[keep] * t[keep, None] + rng.randn(n, 3) * 0.01
+    rem = np.clip(rng.rand(n) * 0.3 + np.where(sem[keep] >= 40, 0.2, 0.5),
+                  0, 1)
+    raw = sem[keep] | (inst[keep] << 16)
+    return (xyz.astype(np.float32), rem.astype(np.float32)[:, None],
+            raw.astype(np.int32))
+
+
+def kitti_scans(root: str, seeds=(KITTI_SEED0, KITTI_SEED0 + 1),
+                n_azimuth: int = KITTI_AZIMUTH):
+    """The sweeps of ``seeds`` as sequence 08 (the val split) under
+    ``root`` (``sequences/08/velodyne/00000N.bin``: x, y, z, remission
+    f32; ``labels/00000N.label``), beside a copy of the dataset's
+    ``semantic-kitti.yaml``; returns the KITTI yaml with its test split's
+    data_root set to ``root``."""
+    import os
+    import shutil
+
+    import numpy as np
+
+    from softgroup_tpu_torch import entry
+    seq = os.path.join(root, 'sequences', '08')
+    os.makedirs(os.path.join(seq, 'velodyne'), exist_ok=True)
+    os.makedirs(os.path.join(seq, 'labels'), exist_ok=True)
+    shutil.copy(os.path.join(os.path.dirname(entry.CONFIGS), 'dataset',
+                             'kitti', 'semantic-kitti.yaml'), root)
+    for i, seed in enumerate(seeds):
+        xyz, rem, raw = kitti_sweep(seed, n_azimuth)
+        np.concatenate([xyz, rem], 1).tofile(
+            os.path.join(seq, 'velodyne', f'{i:06d}.bin'))
+        raw.tofile(os.path.join(seq, 'labels', f'{i:06d}.label'))
+    cfg = entry.kitti_cfg()
+    cfg.data.test.data_root = root
+    return cfg
+
+
+class Hooks:
+    """Wraps, for one run of the test CLI: its ``run_split`` (keeps the
+    net it built), its ``summarize`` (keeps the results), grouping's
+    ``_cell_core`` (keeps each call's cell cap and cell count, with the
+    index of the scan it ran for) and the package logger (keeps every
+    message)."""
+
+    def __init__(self, stats: list):
+        self.stats, self.net, self.results = stats, None, None
+        self.cells, self.messages = [], []
+
+    def __enter__(self):
+        import logging
+
+        from softgroup_tpu_torch.ops import grouping
+        from softgroup_tpu_torch.tools_impl import test_cli
+        from softgroup_tpu_torch.util.logger import get_root_logger
+        self.saved = [(test_cli, 'run_split', test_cli.run_split),
+                      (test_cli, 'summarize', test_cli.summarize),
+                      (grouping, '_cell_core', grouping._cell_core)]
+
+        def run_split(net, *a, _f=test_cli.run_split, **kw):
+            self.net = net
+            return _f(net, *a, **kw)
+
+        def summarize(results, *a, _f=test_cli.summarize, **kw):
+            self.results = results
+            return _f(results, *a, **kw)
+
+        def cell_core(*a, _f=grouping._cell_core):
+            core = _f(*a)
+            self.cells.append((len(self.stats), a[7], core['n_cells']))
+            return core
+        test_cli.run_split, test_cli.summarize = run_split, summarize
+        grouping._cell_core = cell_core
+
+        class Keep(logging.Handler):
+            def emit(h, record):
+                self.messages.append(record.getMessage())
+        self.logger = get_root_logger()
+        self.handler = Keep()
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, f in self.saved:
+            setattr(mod, name, f)
+        self.logger.removeHandler(self.handler)
+
+
+def kitti_phase(net, cfg, root, join_args, reset_counts, read_counts, card,
+                dev) -> dict:
+    """Phase 3d (see the module docstring); returns the launch counts of
+    the test CLI over the two sweeps."""
+    import math
+    import os
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.data import build_dataset
+    from softgroup_tpu_torch.evaluation.postprocess import to_numpy
+    from softgroup_tpu_torch.time_kernels import k3_census
+    from softgroup_tpu_torch.tools_impl import test_cli
+    from softgroup_tpu_torch.tools_impl.test_runner import InferenceRunner
+    from softgroup_tpu_torch.util.checkpoint import reference_state_dict
+
+    # the net's weights as a reference checkpoint, and the config's file
+    pth = os.path.join(root, 'softgroup_kitti.pth')
+    torch.save({'net': reference_state_dict(net.state_dict())}, pth)
+    cfg_path = os.path.join(root, 'softgroup_kitti.yaml')
+    with open(cfg_path, 'w') as f:
+        yaml.safe_dump(cfg.to_dict(), f)
+    out = os.path.join(root, 'out')
+    scans = []
+    with Hooks(scans) as hooks:
+        reset_counts()
+        t = time.perf_counter()
+        metrics = test_cli.main([cfg_path, '--checkpoint', pth, '--out', out],
+                                scene_stats=scans)
+        cli_s = time.perf_counter() - t
+        counts = read_counts()
+
+    n_state = len(net.state_dict())
+    loaded = [m for m in hooks.messages if m.startswith('import: loaded')]
+    mine = hooks.net.state_dict()
+    unequal = [k for k, v in net.state_dict().items()
+               if not torch.equal(v, mine[k])]
+    log(f'[kitti] weight import: {loaded} (the net has {n_state} tensors), '
+        f'{n_state - len(unequal)}/{n_state} imported tensors equal the '
+        f'written weights')
+    if loaded != [f'import: loaded {n_state}/{n_state} tensors'] or unequal:
+        raise RuntimeError(f'the KITTI weight import is not whole: {loaded}, '
+                           f'unequal {unequal[:5]}')
+    if len(scans) != 2 or len(hooks.results) != 2:
+        raise RuntimeError(f'the test CLI ran {len(scans)} KITTI sweeps, '
+                           f'not 2')
+    for i, st in enumerate(scans):
+        caps = st['caps']
+        calls = [(m, int(c)) for s_, m, c in hooks.cells if s_ == i]
+        cells = ', '.join(f'valid={min(c, m)} dropped={max(c - m, 0)} '
+                          f'(cap {m})' for m, c in calls)
+        log(f'[kitti] sweep seed={KITTI_SEED0 + i} points={st["n_points"]} '
+            f'caps: points={caps.points} voxels={list(caps.voxels)} '
+            f'grouping_points={caps.grouping_points} proposal_entries='
+            f'{caps.proposal_entries} grouping_cells={caps.grouping_cells}; '
+            f'level-0 voxels={st["n_voxels"]}; grouping cells {cells}; '
+            f'host_batch_ms={st["host_batch_ms"]:.3f} (native) '
+            f'test_forward_ms={st["forward_ms"]:.3f} '
+            f'get_instances_fusion_ms={st["postprocess_ms"]:.3f} '
+            f'n_proposals={st["n_proposals"]} instances={st["n_instances"]} '
+            f'pasted={st["n_pasted"]} [{card}]')
+        if st['n_proposals'] <= 0 or st['n_pasted'] <= 0:
+            raise RuntimeError(f'KITTI sweep {i}: no proposals or no '
+                               f'instance pasted')
+    stage_s = sum(st['host_batch_ms'] + st['forward_ms']
+                  + st['postprocess_ms'] for st in scans) / 1e3
+    log(f'[kitti] metrics over 2 sweeps (random weights: these show the '
+        f'path ran, not its quality): '
+        + ' '.join(f'{k}={v:.6g}' for k, v in metrics.items())
+        + f'; test CLI {cli_s:.3f} s, of which host batch + forward + '
+        f'get_instances + fusion {stage_s:.3f} s (the rest: the weight '
+        f'import, loading the scans, the evaluator and the writer) [{card}]')
+    if sorted(metrics) != ['PQ'] or not math.isfinite(metrics['PQ']):
+        raise RuntimeError(f'KITTI metrics missing or not finite: {metrics}')
+
+    # one .label a sweep: n points x uint32, decoding back to the learned
+    # classes through learning_map
+    ds = build_dataset(cfg.data.test)
+    for r in hooks.results:
+        path = os.path.join(out, 'panoptic', r['scan_id'].replace(
+            'velodyne', 'predictions') + '.label')
+        lab = np.fromfile(path, dtype=np.uint32)
+        pan = r['panoptic_preds']
+        cls = pan & 0xFFFF
+        learned = ds.learning_map[lab & 0xFFFF]
+        ok = (len(lab) == len(pan) == len(r['semantic_labels'])
+              and (learned[cls < 19] == cls[cls < 19]).all()
+              and (learned[cls == 19] == -100).all()
+              and ((lab >> 16) == (pan >> 16)).all())
+        log(f'[kitti] {os.path.relpath(path, out)}: {len(lab)} points x '
+            f'uint32, {len(np.unique(lab >> 16)) - 1} instance ids, '
+            f'decodes to the fused classes: {ok}')
+        if not ok:
+            raise RuntimeError(f'{path} does not decode to the panoptic '
+                               f'codes')
+
+    log(f'[main-path] KITTI panoptic: launches over 2 sweeps: '
+        f'{json.dumps(counts)}')
+    missing = [k for k in ('rulebook_conv', 'row_gather',
+                           'cell_neighbor_join', 'keyed_conv',
+                           'cell_neighbor_join_int64') if counts[k] <= 0]
+    if missing:
+        raise RuntimeError(f'kernels never launched on the KITTI panoptic '
+                           f'path: {missing}')
+    if counts['cell_neighbor_join_int64'] != counts['cell_neighbor_join']:
+        raise RuntimeError('the KITTI path joined int32 cell keys')
+
+    k3_census([('KITTI request int64 keys', join_args,
+                counts['cell_neighbor_join'])],
+              'chip_smoke', card, [None])
+    runner = entry.build_s3dis_runner(net, cfg)
+    data = first_scan(cfg)
+    t = time.perf_counter()
+    batch, caps = runner.build_batch(data)
+    torch.cuda.synchronize()
+    log(f'[kitti] host batch of sweep seed={KITTI_SEED0} again: '
+        f'{(time.perf_counter() - t) * 1e3:.3f} ms [{card}]')
+    profile(lambda: runner.forward(batch, caps),
+            'one KITTI request (test_forward, Cin 1, int64 cell keys)', card)
+    del batch
+
+    # a small sweep through the runner: card (f32) vs CPU (plain
+    # versions), instances and panoptic codes both kept; the yaml's 200
+    # proposals (the first components found are mostly under min_npoint)
+    small_cfg = cfg.copy()
+    small_cfg.model.test_cfg.eval_tasks = ['instance', 'panoptic']
+    with tempfile.TemporaryDirectory(prefix='kitti_small_') as small_root:
+        kitti_scans(small_root, seeds=(7,), n_azimuth=KITTI_SMALL_AZIMUTH)
+        small_cfg.data.test.data_root = small_root
+        data = first_scan(small_cfg)
+    outs, rets = {}, {}
+    for d in ('cpu', dev):
+        small = InferenceRunner(
+            kitti_lift(entry.build_net(cfg.model, seed=0, device=d,
+                                       bf16=False)),
+            small_cfg.model, entry.caps_from_cfg(cfg), cfg.model.num_blocks,
+            device=d)
+
+        def keep(batch, caps, _f=small.forward, _d=d):
+            o = _f(batch, caps)
+            outs[_d] = to_numpy(o)
+            return o
+        small.forward = keep
+        rets[d] = small.run_scene(data)
+    a, r = outs[dev], outs['cpu']
+    n = len(data['coords'])
+    sem_err = float(np.abs(a['semantic_scores'][:n]
+                           - r['semantic_scores'][:n]).max())
+    off_err = float(np.abs(a['pt_offsets'][:n] - r['pt_offsets'][:n]).max())
+    p_iou, p_a, p_r = best_iou(a, r)
+    i_iou, i_a, i_r = instance_iou(rets[dev]['pred_instances'],
+                                   rets['cpu']['pred_instances'])
+    same = float((rets[dev]['panoptic_preds']
+                  == rets['cpu']['panoptic_preds']).mean())
+    log(f'[kitti-small] card vs CPU, runner on a {n}-point sweep (f32, '
+        f'int64 cell keys): semantic max err {sem_err:.3g} (tol 1e-3), '
+        f'offset max err {off_err:.3g} (tol 1e-3), proposals {p_a} vs {p_r}, '
+        f'mean best IoU {p_iou:.6f} (tol 0.99), instances {i_a} vs {i_r}, '
+        f'mean best IoU with one of its class {i_iou:.6f} (tol 0.99), '
+        f'panoptic codes equal on {same:.6f} of the points (tol 0.99)')
+    if (sem_err > 1e-3 or off_err > 1e-3 or not p_r or p_iou < 0.99
+            or not i_r or i_iou < 0.99 or same < 0.99):
+        raise RuntimeError('card and CPU disagree on the small KITTI '
                            'request')
     return counts
 

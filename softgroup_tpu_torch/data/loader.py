@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from .custom import CustomDataset
+from .kitti import KITTIDataset
 from .s3dis import S3DISDataset
 from .scannetv2 import ScanNetDataset
 from .stpls3d import STPLS3DDataset
@@ -22,6 +23,7 @@ DATASETS = {
     'scannetv2': ScanNetDataset,
     's3dis': S3DISDataset,
     'stpls3d': STPLS3DDataset,
+    'kitti': KITTIDataset,
 }
 
 
@@ -30,10 +32,6 @@ def build_dataset(cfg, logger=None) -> CustomDataset:
     (its ``type`` picks the class, the other keys are its arguments)."""
     cfg = dict(cfg)
     dtype = cfg.pop('type')
-    if dtype == 'kitti':
-        raise NotImplementedError(
-            'the kitti dataset waits for the KITTI panoptic slice '
-            '(data/kitti.py, panoptic fusion and its evaluator)')
     if dtype not in DATASETS:
         raise ValueError(f'unknown dataset type {dtype}')
     return DATASETS[dtype](logger=logger, **cfg)

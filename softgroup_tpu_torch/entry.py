@@ -17,13 +17,20 @@ levels, 20 semantic / 18 instance classes).
   x4_split test split of Area 5), its capacities (``caps_from_cfg``) and
   its runner (``build_s3dis_runner``); ``tools_impl.test_runner.run_eval``
   runs the test split through it and scores it.
+* SemanticKITTI panoptic serving and evaluation:
+  ``configs/softgroup/softgroup_kitti.yaml`` (``kitti_cfg``: the whole
+  yaml; 19 / 8 classes, remission alone as the input, ``with_coords``
+  False, ``pair_keys`` by default, the ``panoptic`` task); the test CLI
+  (``tools_impl/test_cli.py``) imports the reference's ``.pth`` weights
+  into its net, runs the split through ``run_eval``'s loop and writes the
+  ``.label`` results.
 * Training: the model section of ``configs/softgroup/softgroup_scannet.yaml``
   (``train_cfg``), the batch-4 capacities of ``tools/bench_train_batch4.py``
   (``train_capacities``), a collated batch of scenes and the train state
   (net, Adam, step).  Counterpart of ``tools/train.py``'s ``caps_from_cfg``
   / ``build_net`` and ``tools/bench_train_batch4.py``.
 
-``chip_smoke.py`` drives all four.  Everything runs on ``device`` (default the
+``chip_smoke.py`` drives all five.  Everything runs on ``device`` (default the
 card); pass ``device="cpu"`` for the plain PyTorch versions of the kernels.
 """
 
@@ -75,6 +82,7 @@ CONFIGS = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), 'configs')
 PLUS_YAML = os.path.join(CONFIGS, 'softgroup_pp', 'softgroup++_scannet.yaml')
 S3DIS_YAML = os.path.join(CONFIGS, 'softgroup', 'softgroup_s3dis_fold5.yaml')
+KITTI_YAML = os.path.join(CONFIGS, 'softgroup', 'softgroup_kitti.yaml')
 
 
 def plus_cfg() -> Config:
@@ -91,6 +99,16 @@ def s3dis_cfg() -> Config:
     13 classes, ``sem2ins_classes`` [0, 1], ``pair_keys`` by default
     (True), test split Area 5 with ``x4_split``."""
     return load_config(S3DIS_YAML)
+
+
+def kitti_cfg() -> Config:
+    """The whole of ``configs/softgroup/softgroup_kitti.yaml``: channels
+    32, 7 levels, 19 / 8 classes (stuff 0-10 ignored by grouping), radius
+    0.1, ``in_channels`` 1 (remission), ``with_coords`` False,
+    ``pair_keys`` by default (True), ``eval_tasks`` [panoptic] with
+    ``panoptic_skip_iou`` 0.5, ``eval_min_npoint`` 50, test split
+    sequence 08."""
+    return load_config(KITTI_YAML)
 
 
 def caps_from_cfg(cfg: Config) -> Capacities:

@@ -1,8 +1,9 @@
 """Host-side inference postprocessing: the per-scan instance list from the
-outputs of ``SoftGroupNet.test_forward`` / ``test_forward_plus``, and the
-gt encoding of the instance evaluator (numpy copies of
+outputs of ``SoftGroupNet.test_forward`` / ``test_forward_plus``, the gt
+encoding of the instance evaluator and the panoptic fusion of instances
+over the semantic predictions (numpy copies of
 ``softgroup_tpu/evaluation/postprocess.py``: ``get_instances``,
-``get_gt_instances``).
+``get_gt_instances``, ``panoptic_fusion``).
 
 ``out`` holds numpy arrays (``to_numpy`` converts a dict of tensors); entries
 are CSR-sorted by proposal id.
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..util.rle import rle_encode
+from ..util.rle import rle_decode, rle_encode
 
 
 def to_numpy(out: dict) -> dict:
@@ -98,3 +99,41 @@ def get_gt_instances(semantic_labels: np.ndarray, instance_labels: np.ndarray,
     gt = sem.astype(np.int64) * 1000 + inst
     gt[inst < 0] = 0  # ignored instances (label -100)
     return gt
+
+
+def panoptic_fusion(semantic_preds: np.ndarray, instance_preds: list[dict],
+                    cfg, semantic_classes: int, instance_classes: int,
+                    thing_start: int | None = None) -> np.ndarray:
+    """Panoptic codes ``(cls & 0xFFFF) | (id << 16)`` (uint32) of a scan:
+    instances pasted over the semantic predictions by descending score,
+    an instance whose mask overlaps the pasted points by more than
+    ``cfg.test_cfg.panoptic_skip_iou`` skipped; a thing-class point that
+    no instance took gets class ``semantic_classes`` (ignore) and id 0.
+
+    thing_start defaults to semantic_classes - instance_classes (the stuff
+    classes take the low ids): 19 - 8 = 11 for SemanticKITTI."""
+    if thing_start is None:
+        thing_start = semantic_classes - instance_classes
+    cls_offset = semantic_classes - instance_classes - 1
+    pan_cls = semantic_preds.astype(np.uint32).copy()
+    pan_ids = np.zeros_like(pan_cls)
+
+    order = np.argsort([x['conf'] for x in instance_preds])[::-1]
+    pasted = np.zeros(len(semantic_preds), bool)
+    pid = 1
+    for i in order:
+        inst = instance_preds[i]
+        mask = rle_decode(inst['pred_mask']).astype(bool)
+        inter = (mask & pasted).sum()
+        if inter / (mask.sum() + 1e-5) > cfg.test_cfg.panoptic_skip_iou:
+            continue
+        paste = mask & ~pasted
+        pan_cls[paste] = inst['label_id'] + cls_offset
+        pan_ids[paste] = pid
+        pasted |= paste
+        pid += 1
+
+    ignore = (pan_cls >= thing_start) & (pan_ids == 0)
+    out = (pan_cls & 0xFFFF) | (pan_ids << np.uint32(16))
+    out[ignore] = semantic_classes
+    return out.astype(np.uint32)

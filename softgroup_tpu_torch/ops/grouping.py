@@ -177,5 +177,7 @@ def _cell_core(shifted, group, valid, payload, radius, cell_scale,
             break
 
     cell_group = torch.where(cell_valid, clo // (dk[0] * dk[1] * dk[2]), 0)
-    return dict(payload_s=payload_s, cid_s=cid_s, clab=lab, cnt=cnt, cell_valid=cell_valid,
-                cell_group=cell_group)
+    # n_cells: every cell of the entries, also those past the cap m
+    return dict(payload_s=payload_s, cid_s=cid_s, clab=lab, cnt=cnt,
+                cell_valid=cell_valid, cell_group=cell_group,
+                n_cells=n_cells)

@@ -293,7 +293,7 @@ def k4_args(calls: list) -> dict:
 
 
 def request_args(calls: dict, caps, tag: str,
-                 n_heads: int | None = None) -> dict:
+                 n_heads: int | None = None, cin: int = 6) -> dict:
     """The K1, K2 and K4 cases of one request of ``chip_smoke.py`` beyond
     the flagship's, as (args, kwargs) by label (``tag`` after the kernel),
     from its recorded calls (``caps``: its bucketed capacities): the
@@ -302,7 +302,8 @@ def request_args(calls: dict, caps, tag: str,
     to the points in one (V0, n_heads) f32 gather and whose grouping
     entries are voxels; None: a request that devoxelizes (V0, 32) bf16
     features and groups points (the S3DIS request, its x4_split parts in
-    one level-0 grid)."""
+    one level-0 grid, and the SemanticKITTI request).  ``cin``: the
+    input conv's channels (1 for SemanticKITTI's remission)."""
     import torch
     conv, gather = calls['rulebook_conv'], calls['row_gather']
     v0, p, m = caps.voxels[0], caps.grouping_points, caps.grouping_cells
@@ -311,8 +312,8 @@ def request_args(calls: dict, caps, tag: str,
         f'K1 {tag} L0 subm 32->32 bf16 (V0={v0})': pick(
             conv, lambda a, k: a[2].shape == (27, v0)
             and a[1].shape[1:] == (32, 32), f'{tag} L0 subm'),
-        f'K1 {tag} input conv 6->32 bf16 (V0={v0})': pick(
-            conv, lambda a, k: a[1].shape[1] == 6, f'{tag} input conv'),
+        f'K1 {tag} input conv {cin}->32 bf16 (V0={v0})': pick(
+            conv, lambda a, k: a[1].shape[1] == cin, f'{tag} input conv'),
     }
     if n_heads:
         out[f'K2 {tag} heads (V0, {n_heads}) f32 (V0={v0})'] = pick(

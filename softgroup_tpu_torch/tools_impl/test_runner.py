@@ -6,9 +6,10 @@ A request is ``run_scene(data)`` on one collated scan: the host batch at
 per-scene bucketed capacities (``build_batch``, native host geometry), the
 device forward (``test_forward``, or ``test_forward_plus`` when
 ``test_cfg.lvl_fusion`` is set), then the host postprocess in the scan's
-original point order.  ``run_eval`` runs every scan of a config's test
-split through it and ``summarize`` scores them (instance AP, mIoU,
-accuracy, offset MAE).  Panoptic fusion is not ported yet.
+original point order: the instances and, for a ``'panoptic'`` task, their
+panoptic fusion over the semantic predictions.  ``run_split`` runs every
+scan of a config's test split through it, ``summarize`` scores them
+(instance AP, mIoU, accuracy, offset MAE, PQ) and ``run_eval`` does both.
 """
 
 from __future__ import annotations
@@ -21,10 +22,12 @@ import torch
 from ..data.loader import build_dataloader, build_dataset
 from ..data.padding import build_scene_batch, round_capacity
 from ..evaluation.instance_eval import ScanNetEval
+from ..evaluation.panoptic_eval import PanopticEval
 from ..evaluation.point_wise_eval import (evaluate_offset_mae,
                                           evaluate_semantic_acc,
                                           evaluate_semantic_miou)
-from ..evaluation.postprocess import get_gt_instances, get_instances, to_numpy
+from ..evaluation.postprocess import (get_gt_instances, get_instances,
+                                      panoptic_fusion, to_numpy)
 from ..model.softgroup import Capacities
 from ..ops.geometry import host_geometry
 from ..util.config import getattr_or
@@ -94,15 +97,12 @@ class InferenceRunner:
 
         ``stats``, when given, receives the capacities (``caps``), the
         points and level-0 voxels (``n_points``, ``n_voxels``), the
-        proposal and instance counts and the host clock of each stage in
-        ms (``host_batch_ms``, ``forward_ms`` with the device
-        synchronised, ``postprocess_ms``: the copy to the host and the
-        instances)."""
+        proposal and instance counts, the instances pasted by the panoptic
+        fusion (``n_pasted``, a ``'panoptic'`` task) and the host clock of
+        each stage in ms (``host_batch_ms``, ``forward_ms`` with the device
+        synchronised, ``postprocess_ms``: the copy to the host, the
+        instances and their fusion)."""
         tasks = self.cfg.test_cfg.eval_tasks
-        if 'panoptic' in tasks:
-            raise NotImplementedError(
-                'panoptic fusion waits for the KITTI panoptic slice '
-                '(panoptic_fusion and its evaluator) and is not ported')
         scan_id = data['scan_ids'][0]
         n = len(data['coords'])
         t0 = time.perf_counter()
@@ -139,28 +139,36 @@ class InferenceRunner:
                 out['entry_pt'] = np.where(ev, pts, out['entry_pt'])
 
         ret = dict(scan_id=scan_id)
+        if 'semantic' in tasks or 'panoptic' in tasks:
+            ret.update(semantic_labels=data['semantic_labels'],
+                       instance_labels=data['instance_labels'])
         if 'semantic' in tasks:
             ret.update(
-                semantic_labels=data['semantic_labels'],
-                instance_labels=data['instance_labels'],
                 coords_float=data['coords_float'],
                 color_feats=data['feats'],
                 semantic_preds=sem_preds,
                 offset_preds=unperm(out['pt_offsets'][:n]),
                 offset_labels=data['pt_offset_labels'])
-        if not self.net.semantic_only and 'instance' in tasks:
+        pred_instances = ()
+        if not self.net.semantic_only and (
+                'instance' in tasks or 'panoptic' in tasks):
             if self.lvl_fusion:
                 # masks live on voxels: expand through the un-permuted p2v
                 p2v = unperm(batch.pyramid.p2v[:n].cpu().numpy())
                 n_vox = int(batch.pyramid.levels[0].vox_valid.sum())
-                ret['pred_instances'] = get_instances(
-                    scan_id, out, n_vox, self.cfg, v2p_map=p2v)
+                pred_instances = get_instances(scan_id, out, n_vox,
+                                               self.cfg, v2p_map=p2v)
             else:
-                ret['pred_instances'] = get_instances(scan_id, out, n,
-                                                      self.cfg)
-            ret['gt_instances'] = get_gt_instances(
-                data['semantic_labels'], data['instance_labels'],
-                self.cfg.semantic_classes, self.cfg.instance_classes)
+                pred_instances = get_instances(scan_id, out, n, self.cfg)
+            if 'instance' in tasks:
+                ret['pred_instances'] = pred_instances
+                ret['gt_instances'] = get_gt_instances(
+                    data['semantic_labels'], data['instance_labels'],
+                    self.cfg.semantic_classes, self.cfg.instance_classes)
+            if 'panoptic' in tasks:
+                ret['panoptic_preds'] = panoptic_fusion(
+                    sem_preds, pred_instances, self.cfg,
+                    self.cfg.semantic_classes, self.cfg.instance_classes)
         if stats is not None:
             stats.update(
                 caps=caps, n_proposals=int(out.get('n_proposals', 0)),
@@ -168,17 +176,20 @@ class InferenceRunner:
                 postprocess_ms=(time.perf_counter() - t2) * 1e3,
                 n_points=n,
                 n_voxels=int(batch.pyramid.levels[0].vox_valid.sum()),
-                n_instances=len(ret.get('pred_instances', ())))
+                n_instances=len(pred_instances))
+            if 'panoptic_preds' in ret:
+                ids = ret['panoptic_preds'] >> 16
+                stats['n_pasted'] = len(np.unique(ids[ids > 0]))
         return ret
 
 
-def run_eval(net, cfg, base_caps: Capacities, num_levels: int, logger=None,
-             max_scenes: int | None = None, device='cuda',
-             scene_stats: list | None = None) -> dict:
-    """Every scan of ``cfg.data.test`` through the runner of ``net`` (on
-    ``device`` already), then ``summarize``: a flat metric dict.
-    ``scene_stats``, when given, receives each scan's ``run_scene``
-    stats."""
+def run_split(net, cfg, base_caps: Capacities, num_levels: int,
+              logger=None, max_scenes: int | None = None, device='cuda',
+              scene_stats: list | None = None):
+    """Every scan of ``cfg.data.test`` (the first ``max_scenes``) through
+    the runner of ``net`` (on ``device`` already): (the ``run_scene``
+    results, the dataset).  ``scene_stats``, when given, receives each
+    scan's ``run_scene`` stats."""
     dataset = build_dataset(cfg.data.test, logger)
     loader = build_dataloader(dataset, batch_size=1,
                               num_workers=cfg.dataloader.test.num_workers,
@@ -193,13 +204,24 @@ def run_eval(net, cfg, base_caps: Capacities, num_levels: int, logger=None,
         results.append(runner.run_scene(data, stats=st))
         if st is not None:
             scene_stats.append(st)
+        if logger and i % 10 == 0:
+            logger.info(f'scan {i}: {results[-1]["scan_id"]}')
+    return results, dataset
+
+
+def run_eval(net, cfg, base_caps: Capacities, num_levels: int, logger=None,
+             max_scenes: int | None = None, device='cuda',
+             scene_stats: list | None = None) -> dict:
+    """``run_split``, then ``summarize``: a flat metric dict."""
+    results, dataset = run_split(net, cfg, base_caps, num_levels, logger,
+                                 max_scenes, device, scene_stats)
     return summarize(results, cfg, dataset, logger)
 
 
 def summarize(results: list, cfg, dataset, logger=None) -> dict:
-    """Instance AP / AP_50 / AP_25 (the ScanNet protocol) and the
-    point-wise mIoU, accuracy and offset MAE of ``run_scene`` results, as
-    the config's ``eval_tasks`` ask."""
+    """Instance AP / AP_50 / AP_25 (the ScanNet protocol), the point-wise
+    mIoU, accuracy and offset MAE, and PQ (the SemanticKITTI protocol) of
+    ``run_scene`` results, as the config's ``eval_tasks`` ask."""
     out = {}
     tasks = cfg.model.test_cfg.eval_tasks
     # the evaluator's gt size gate is the top-level eval_min_npoint (kitti
@@ -226,4 +248,14 @@ def summarize(results: list, cfg, dataset, logger=None) -> dict:
         inst_gt = np.concatenate([r['instance_labels'] for r in results])
         out['Offset_MAE'] = evaluate_offset_mae(off_pred, off_gt, inst_gt,
                                                 ignore, logger)
+    if 'panoptic' in tasks and results and 'panoptic_preds' in results[0]:
+        ev = PanopticEval(
+            dataset.THING, dataset.STUFF,
+            min_points=50 if eval_min_npoint is None else eval_min_npoint)
+        pq = ev.evaluate([r['panoptic_preds'] for r in results],
+                         [r['semantic_labels'] for r in results],
+                         [r['instance_labels'] for r in results])
+        if logger:
+            logger.info(f'PQ: {pq["PQ"]:.1f}')
+        out.update(PQ=pq['PQ'])
     return out

@@ -32,7 +32,8 @@ def dev():
 
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('k,cin,cout', [(27, 6, 32), (27, 384, 192),
-                                        (8, 32, 64), (27, 224, 224)])
+                                        (8, 32, 64), (27, 224, 224),
+                                        (27, 1, 32)])
 def test_rulebook_conv(dev, dtype, k, cin, cout):
     g = torch.Generator(device=dev).manual_seed(k + cin)
     f = torch.randn(3000, cin, device=dev, generator=g).to(dtype)
@@ -69,13 +70,14 @@ def _padded(rules: np.ndarray, pad: int) -> np.ndarray:
 @pytest.mark.parametrize('case,cin,cout', [
     ('subm', 6, 32), ('subm', 32, 32), ('subm', 224, 224),
     ('subm', 384, 192), ('down', 32, 64), ('subm_grad', 32, 64),
-    ('subm', 7, 19), ('empty', 32, 32)])
+    ('subm', 7, 19), ('empty', 32, 32), ('subm', 1, 32)])
 def test_rulebook_conv_room(dev, monkeypatch, dtype, fill, case, cin, cout):
     """K1 on a room's rulebooks: v_out not a multiple of 64, a padded tail
     of all-miss tiles, the rules a column slice of a wider table, one
     block per tile (``fill`` 1) or a tile's steps cut over several; the
     transposed, flipped weights of the subm feature gradient; odd widths;
-    an all -1 rulebook."""
+    an all -1 rulebook; the SemanticKITTI input conv (Cin 1: remission
+    alone, a 2-byte bf16 row)."""
     if fill is not None:   # bf16 and f32 grid targets
         monkeypatch.setattr(ck, '_K1_FILL_BLOCKS', fill)
         monkeypatch.setattr(ck, '_FILL_BLOCKS', fill)
@@ -319,9 +321,14 @@ def _cell_input64(case: str):
     """(keys, centroid, ccoord, dims, radius) of one K3 card case on int64
     keys (int64 max padded): the int32 cases' cells widened, 13 groups of
     blocks of cells on an 80 m x 80 m x 4 m grid at 0.04 m (keys past
-    2^31), and a grid whose d1 * d2 passes 2^31 (dx = +-1 brackets of
-    2^32 rows, clamped to the table)."""
+    2^31), a grid whose d1 * d2 passes 2^31 (dx = +-1 brackets of
+    2^32 rows, clamped to the table), and SemanticKITTI's outdoor grid (8
+    thing groups, 1600 x 1600 x 40 cells of 0.05 m at radius 0.1: brackets
+    of d1 * d2 = 64000 rows; ground patches two cells thick beside blocks
+    of things)."""
     radius = 0.04
+    if case == 'outdoor':
+        return _outdoor_cells()
     if case in ('scan layout', 'duplicate keys', 'all padding'):
         keys, cen, cc, dims, radius = _cell_input(case)
         k = keys.astype(np.int64)
@@ -354,16 +361,50 @@ def _cell_input64(case: str):
     return keys, centroid, ccoord, d.astype(np.int32), radius
 
 
+def _outdoor_cells():
+    """The 'outdoor' case of ``_cell_input64``."""
+    rng = np.random.RandomState(9)
+    d = np.array([1600, 1600, 40])
+    parts = []
+    for _ in range(400):
+        g = rng.randint(8)
+        if rng.rand() < 0.3:   # a ground patch, two cells thick
+            lo = np.r_[rng.randint(0, d[:2] - 40), 0]
+            size = (40, 40, 2)
+        else:                  # a thing: a block of cells
+            lo = rng.randint(0, d - 6)
+            size = (6, 6, 6)
+        cube = np.stack(np.meshgrid(*[np.arange(n) for n in size],
+                                    indexing='ij'), -1).reshape(-1, 3) + lo
+        cube = cube[rng.rand(len(cube)) < 0.6]
+        parts.append(np.concatenate([np.full((len(cube), 1), g), cube], 1))
+    gc = np.unique(np.concatenate(parts), axis=0)
+    key = ((gc[:, 0] * d[0] + gc[:, 1]) * d[1] + gc[:, 2]) * d[2] + gc[:, 3]
+    order = np.argsort(key)
+    key, cc = key[order], gc[order, 1:]
+    cen = ((cc + 0.5 + 0.6 * (rng.rand(*cc.shape) - 0.5))
+           * 0.05).astype(np.float32)
+    m = len(key) + 777
+    keys = np.full(m, np.iinfo(np.int64).max, np.int64)
+    keys[:len(key)] = key
+    ccoord = np.zeros((m, 3), np.int32)
+    ccoord[:len(key)] = cc
+    centroid = np.zeros((m, 3), np.float32)
+    centroid[:len(key)] = cen
+    return keys, centroid, ccoord, d.astype(np.int32), 0.1
+
+
 @pytest.mark.parametrize('block', [32, 64, 256])
 @pytest.mark.parametrize('case', ['scan layout', 'past int32',
                                   'd1 d2 past int32', 'duplicate keys',
-                                  'all padding'])
+                                  'all padding', 'outdoor'])
 def test_cell_join_int64(dev, monkeypatch, case, block):
     """K3 on int64 keys (``sg_cell_join64``) equal to its plain version:
     the room scan's cells widened (equal to the int32 kernel's result too),
     keys past 2^31 in 13 groups, a grid whose d1 * d2 passes 2^31,
-    duplicate keys (searched over the whole table) and an all-padding
-    table; the launch is counted as an int64 one."""
+    duplicate keys (searched over the whole table), an all-padding table
+    and SemanticKITTI's outdoor grid; the launch is counted as an int64
+    one."""
     monkeypatch.setattr(jk, '_K3_BLOCK', block)
     keys, cen, cc, dims, radius = _cell_input64(case)
     args = [torch.from_numpy(a).to(dev) for a in (keys, cen, cc, dims)]

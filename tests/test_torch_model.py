@@ -183,7 +183,10 @@ def test_port_imports_no_jax():
         '       ("jax", "jaxlib", "flax", "softgroup_tpu")]\n'
         'assert not bad, bad\n'
         'for name in ("entry", "ops.native", "tools_impl.test_runner",\n'
-        '             "data.s3dis", "evaluation.instance_eval"):\n'
+        '             "data.s3dis", "evaluation.instance_eval",\n'
+        '             "data.kitti", "evaluation.panoptic_eval",\n'
+        '             "util.checkpoint", "util.logger",\n'
+        '             "tools_impl.test_cli"):\n'
         '    assert "softgroup_tpu_torch." + name in sys.modules, name\n')
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)

@@ -377,12 +377,21 @@ def test_runner_build_batch_matches(data, models, lvl_fusion, native):
 
 
 def test_run_scene_panoptic_raises(data, models):
-    _, _, net = models
+    """A ``'panoptic'`` task no longer raises: the runner fuses its
+    instances over the un-permuted semantic predictions, the codes equal
+    the reference runner's and the other tasks' results are kept."""
+    jnet, variables, net = models
     cfg = tiny_cfg(dict(TINY, test_cfg=dict(
-        TINY['test_cfg'], eval_tasks=['semantic', 'instance', 'panoptic'])))
+        TINY['test_cfg'], eval_tasks=['semantic', 'instance', 'panoptic'],
+        panoptic_skip_iou=0.5)))
+    ref = JaxRunner(jnet, variables, cfg, JCaps(**CAPS), 3).run_scene(data)
     runner = InferenceRunner(net, cfg, Capacities(**CAPS), 3, device='cpu')
-    with pytest.raises(NotImplementedError, match='KITTI panoptic'):
-        runner.run_scene(data)
+    got = runner.run_scene(data)
+    assert sorted(got) == sorted(ref)
+    assert got['panoptic_preds'].dtype == ref['panoptic_preds'].dtype
+    np.testing.assert_array_equal(got['panoptic_preds'],
+                                  ref['panoptic_preds'])
+    assert (got['panoptic_preds'] >> 16).max() > 0
 
 
 def test_plus_cfg_and_runner():

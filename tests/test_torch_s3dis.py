@@ -427,8 +427,12 @@ def test_build_dataset_and_loader_match(rooms, kind):
 
 
 def test_build_dataset_kitti_and_training_loader_raise(rooms):
-    with pytest.raises(NotImplementedError, match='KITTI panoptic'):
-        build_dataset(dict(type='kitti', data_root=rooms))
+    """``type: kitti`` is registered: it reads the dataset's
+    ``semantic-kitti.yaml``, which an S3DIS folder lacks; the training
+    loader still raises."""
+    with pytest.raises(FileNotFoundError, match='semantic-kitti.yaml'):
+        build_dataset(dict(type='kitti', data_root=rooms, prefix='val',
+                           suffix='.bin'))
     ds = build_dataset(dict(type='s3dis', data_root=rooms, prefix='Area_5',
                             suffix='_inst_nostuff.pth', training=False,
                             voxel_cfg=Config(VOXEL_CFG)))
