@@ -59,6 +59,28 @@ non-zero):
      (frozen backbone, then all params), 1 warm-up and 3 timed steps each,
      counters set to 0 just before the timed steps and read just after,
      then one all-params step under the profiler;
+  4b. the train CLI: twenty 110k-point ScanNet rooms (seeds 600-619: 20
+     steps an epoch) and two val rooms (650-651) written in the prepared
+     ``_inst_nostuff.pth`` format, then ``tools_impl.train_cli.main`` on
+     copies of the two ScanNet yamls (only ``data_root``, ``work_dir`` and
+     stage 2's ``pretrain`` changed): stage 1
+     (``softgroup_scannet_backbone.yaml``) for 2 epochs with validation;
+     stage 1's last weights written as a reference ``.pth`` (the batch
+     norms' running statistics set from one train-mode pass over a CLI
+     batch, the semantic head's bias lifted) for stage 2
+     (``softgroup_scannet.yaml``, frozen backbone) for 2 epochs, then
+     ``--resume --epochs 3``; then the test CLI on stage 2's epoch-2
+     checkpoint.  Counters set to 0 just before each stage and read just
+     after (validation's launches apart), with each step's data wait,
+     iteration ms, learning rate, losses, level-0 voxels and peak memory,
+     each epoch's wall, checkpoint save / load ms, validation wall and
+     metrics, the data wait past each epoch's first step; checks on the
+     losses, the schedule, the scheduled validations, the checkpoints
+     kept, the resumed state, the frozen backbone and the test CLI's
+     metrics, and stage 2's positive proposals a step;
+     one step of each stage under the profiler.  One stage-1 step on a
+     CLI batch is recorded in phase 2, and its K1 / K2 / K5 / K6 calls at
+     the yaml's capacities are held to their plain versions there;
   5. small inputs through the card (f32) against the same port on the CPU
      (plain PyTorch versions of every kernel): a request, then a train step
      held gradient leaf by gradient leaf against control runs
@@ -96,6 +118,18 @@ GRAD_CTRL_FACTOR = 4.0
 KINK_BOUND = 1e-4
 FROZEN = 'frozen backbone'
 ALL = 'all params'
+# the train CLI's ScanNet rooms: seeds 600-619 (train) and 650-651 (val).
+# Sized to the yaml's capacities: these rooms have ~0.57 level-1 voxels a
+# level-0 voxel (the yaml's caps 0.5), so at 150k points four augmented
+# rooms overflow level 1's 262144; at 110k (~88k / 50k voxels at levels
+# 0 / 1 a room, at most 95k / 62k) four rooms fit every level.  20 rooms x
+# the yaml's repeat 4 = 20 steps an epoch: enough for the loader's steady
+# state past each epoch's first step (the workers' start)
+SCANNET_SEED0 = 600
+SCANNET_VAL_SEED0 = 650
+SCANNET_POINTS = 110000
+SCANNET_TRAIN_ROOMS = 20
+SCANNET_VAL_ROOMS = 2
 
 
 def small_capacities():
@@ -195,7 +229,7 @@ def main() -> int:
     dev = 'cuda'
     kind = torch.cuda.get_device_name(0)
     card = card_line()
-    t_phase = time.perf_counter()
+    t_phase = t_start = time.perf_counter()
 
     def phase_done(name):
         nonlocal t_phase
@@ -324,6 +358,18 @@ def main() -> int:
         f'n_proposals={kstats["n_proposals"]}')
     if kstats['n_proposals'] <= 0:
         raise RuntimeError('warm-up KITTI request produced no proposals')
+
+    # the train CLI's rooms and yaml copies, and one stage-1 step on a
+    # batch of its loader (the yaml's capacities)
+    cli_dir = tempfile.TemporaryDirectory(prefix='scannet_')
+    t = time.perf_counter()
+    cli_paths = scannet_rooms(cli_dir.name)
+    log(f'[warmup] {SCANNET_TRAIN_ROOMS} + {SCANNET_VAL_ROOMS} ScanNet '
+        f'rooms of {SCANNET_POINTS} points written in '
+        f'{time.perf_counter() - t:.3f} s')
+    cli_batch, crec, cli_caps = cli_record(
+        cli_paths[0], sites + [(sparse_conv, 'rulebook_conv_dw'),
+                               (gk, 'sorted_segment_sum')], dev)
 
     train_batches = [make_train_batch(i) for i in range(TRAIN_STEPS + 1)]
     log(f'[warmup] {len(train_batches)} host batches of 4 x 250k points: '
@@ -494,12 +540,12 @@ def main() -> int:
             else:
                 keyed_case(label, a, kw, path)
 
-    def dw_case(label, args, dtype):
+    def dw_case(label, args, dtype, path='train_all'):
         feats, g, rules = args
         feats, g = feats.to(dtype), g.to(dtype)
         cases.append(dict(
             name=f'K5 rulebook_conv_dw {label}', key='rulebook_conv_dw',
-            route='cuda', source='softgroup_tpu_torch/csrc/conv.cu',
+            path=path, route='cuda', source='softgroup_tpu_torch/csrc/conv.cu',
             replaces='softgroup_tpu/ops/conv_kernel.py:1170',
             fn=lambda: ck.rulebook_conv_dw(feats, g, rules),
             plain=lambda: ck.rulebook_conv_dw_plain(feats, g, rules),
@@ -543,14 +589,14 @@ def main() -> int:
             return err, worst, text
         return check
 
-    def segsum_case(label, args, kw):
+    def segsum_case(label, args, kw, path='train_all'):
         values, seg, s = args
         ok = (seg >= 0) & (seg < s)
         seg_l, vals_f = seg[ok].long(), values[ok].float()
         out_dtype = kw.get('out_dtype', torch.float32)
         cases.append(dict(
             name=f'K6 sorted_segment_sum {label}',
-            key='sorted_segment_sum', route='cuda',
+            key='sorted_segment_sum', path=path, route='cuda',
             source='softgroup_tpu_torch/csrc/gather.cu',
             replaces='softgroup_tpu/ops/gather_kernel.py:149',
             fn=lambda: gk.sorted_segment_sum(values, seg, s, **kw),
@@ -603,6 +649,7 @@ def main() -> int:
             fn=lambda: jk.sorted_key_rules_join(*args),
             plain=lambda: jk.sorted_key_rules_join_plain(*args),
             library=None, tol_rel=0.0, reason='integer join: exact',
+            path='train_all',
             bound=rules_bound(args[0], args[1], args[2], len(args[3]))))
 
     for m_ in tcaps.inst_voxels:
@@ -610,7 +657,30 @@ def main() -> int:
                                    == m_, f'K7 m={m_}')[0])
     # a trained model's fill: every row a voxel of dense 20^3 grids
     rules_case('trained fill m=131072', k7_trained_fill(dev))
-    del rec, trec, prec, srec, out
+
+    # the train CLI's stage-1 step at the yaml's capacities (V0 = 524288,
+    # 1048576 points): K1, K2, K5, K6 on its level 0 (its K3 and K7 calls
+    # have the shapes of the all-params step's: the same grouping cells
+    # and proposal grids)
+    cv0, cpts = cli_caps.voxels[0], cli_caps.points
+    conv_case(f'train CLI L0 subm 32->32 bf16 (V0={cv0})', pick(
+        crec.calls['rulebook_conv'], lambda a, k: a[2].shape == (27, cv0)
+        and a[1].shape[1:] == (32, 32), 'train CLI L0 subm')[0],
+        torch.bfloat16, 'train_cli_backbone')
+    gather_case(f'train CLI devoxelize (V0, 32) bf16 (V0={cv0})', pick(
+        crec.calls['row_gather'], lambda a, k: a[0].dtype == torch.bfloat16
+        and a[0].shape == (cv0, 32), 'train CLI devoxelize')[0],
+        'train_cli_backbone')
+    dw_case(f'train CLI L0 subm 32->32 bf16 (V0={cv0})', pick(
+        crec.calls['rulebook_conv_dw'], lambda a, k: a[2].shape == (27, cv0)
+        and a[0].shape[1] == 32 and a[1].shape[1] == 32,
+        'train CLI dW L0')[0], torch.bfloat16, 'train_cli_backbone')
+    args, kw = pick(crec.calls['sorted_segment_sum'],
+                    lambda a, k: a[0].shape[1] == 32,
+                    'train CLI devoxelize backward')
+    segsum_case(f'train CLI devoxelize backward ({cpts}, 32) bf16', args,
+                kw, 'train_cli_backbone')
+    del rec, trec, prec, srec, crec, out
 
     results = []
     for c in cases:
@@ -655,10 +725,8 @@ def main() -> int:
         key = c['key']
         results.append(dict(
             name=c['name'], key=key, route=c['route'],
-            # the path the kernel was ported for, whose launches count
-            path=c.get('path', 'train_all' if key in (
-                'rulebook_conv_dw', 'sorted_segment_sum',
-                'sorted_key_rules_join') else 'serving'),
+            # the path whose launches count for the case
+            path=c.get('path', 'serving'),
             source=c['source'], replaces=c['replaces'], max_abs_err=err,
             ms=ms, device_ms=reading[0], host_us=wrap_us, plain_ms=plain_ms,
             bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
@@ -829,6 +897,14 @@ def main() -> int:
     del train_batches
     phase_done('training path')
 
+    # ---- phase 4b: the train CLI ---------------------------------------
+    cli_counts = train_cli_phase(cli_paths, cli_batch, reset_counts,
+                                 read_counts, card, dev)
+    del cli_batch
+    cli_dir.cleanup()
+    torch.cuda.empty_cache()
+    phase_done('train CLI')
+
     # ---- phase 5: small inputs, card (f32) vs CPU (plain versions) ------
     small_caps = small_capacities()
     scene = make_scene(np.random.RandomState(7), n_points=20000,
@@ -860,9 +936,12 @@ def main() -> int:
                    's3dis': s3dis_counts[key],
                    'kitti': kitti_counts[key],
                    'train_frozen': train_counts[FROZEN][key],
-                   'train_all': train_counts[ALL][key]}
+                   'train_all': train_counts[ALL][key],
+                   'train_cli_backbone': cli_counts[0][key],
+                   'train_cli': cli_counts[1][key]}
         r_['launches'] = by_path[r_.pop('path')]
         r_['launches_by_path'] = by_path
+    log(f'[phase] total: {time.perf_counter() - t_start:.3f} s')
     log(card)
     print(json.dumps({'kernels': results}), flush=True)
     print(json.dumps({'ok': True, 'device': {
@@ -1519,6 +1598,420 @@ def kitti_phase(net, cfg, root, join_args, reset_counts, read_counts, card,
         raise RuntimeError('card and CPU disagree on the small KITTI '
                            'request')
     return counts
+
+
+def scannet_rooms(root: str) -> tuple:
+    """``SCANNET_TRAIN_ROOMS`` + ``SCANNET_VAL_ROOMS`` synthetic ScanNet
+    rooms of ``SCANNET_POINTS`` points (seeds 600-619, 650-651) saved as
+    prepared scans (``train/`` and ``val/``, labels float64, as the
+    reference's ``prepare_data_inst.py`` writes them) under ``root``, and
+    copies of the two ScanNet yamls with only ``data_root``, ``work_dir``
+    and (stage 2) ``pretrain`` changed; returns (stage-1 yaml, stage-2
+    yaml, stage 2's pretrain path)."""
+    import os
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.data.synthetic import make_room_scene
+    from softgroup_tpu_torch.util.config import load_config
+    for split, n, seed0 in (('train', SCANNET_TRAIN_ROOMS, SCANNET_SEED0),
+                            ('val', SCANNET_VAL_ROOMS, SCANNET_VAL_SEED0)):
+        os.makedirs(os.path.join(root, split))
+        for i in range(n):
+            xyz, rgb, sem, inst = make_room_scene(
+                np.random.RandomState(seed0 + i), n_points=SCANNET_POINTS,
+                n_instances=12)
+            torch.save((xyz, rgb, sem.astype(np.float64),
+                        inst.astype(np.float64)),
+                       os.path.join(root, split, f'scene{seed0 + i:04d}_00'
+                                    '_inst_nostuff.pth'))
+    pretrain = os.path.join(root, 'backbone.pth')
+    paths = []
+    for stage, src in enumerate(entry.SCANNET_YAMLS, 1):
+        cfg = load_config(src)
+        cfg.data.train.data_root = cfg.data.test.data_root = root
+        cfg.work_dir = os.path.join(root, f'work_stage{stage}')
+        if stage == 2:
+            cfg.pretrain = pretrain
+        paths.append(os.path.join(root, os.path.basename(src)))
+        with open(paths[-1], 'w') as f:
+            yaml.safe_dump(cfg.to_dict(), f)
+    return paths[0], paths[1], pretrain
+
+
+def cli_record(cfg_path: str, sites, dev):
+    """One batch of the yaml's training loader (epoch 1, pinned) and one
+    step of its train state (``train_cli.build_train_state``) on it with
+    the kernel wrappers at ``sites`` recorded; returns (the batch on the
+    host, the recorder, the capacities)."""
+    import torch
+
+    from softgroup_tpu_torch.time_kernels import Recorder
+    from softgroup_tpu_torch.tools_impl import train_cli
+    from softgroup_tpu_torch.util.config import load_config
+    cfg = load_config(cfg_path)
+    caps = train_cli.caps_from_cfg(cfg)
+    loader = train_cli.build_train_loader(cfg, caps, pin_memory=True)
+    loader.set_epoch(1)
+    # the whole epoch (workers cut off mid-batch end abnormally); the first
+    batch = None
+    for _, b in loader:
+        batch = b if batch is None else batch
+    net = train_cli.build_net(cfg, dev)
+    state, _ = train_cli.build_train_state(net, cfg, caps, len(loader))
+    with Recorder(sites) as rec:
+        logs = state.step(batch.to(dev),
+                          generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+    log(f'[warmup] train CLI stage-1 step on a batch of its loader: '
+        f'level-0 voxels {int(batch.pyramid.levels[0].vox_valid.sum())} '
+        f'(cap {caps.voxels[0]}), loss={float(logs["loss"]):.6f}')
+    return batch, rec, caps
+
+
+def _to_cpu(x):
+    """A state dict (nested dicts / lists of tensors) on the host."""
+    import torch
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().clone()
+    if isinstance(x, dict):
+        return {k: _to_cpu(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_to_cpu(v) for v in x)
+    return x
+
+
+def _unequal(a, b, what='') -> list:
+    """The places where two host state dicts differ (bits, not values)."""
+    import torch
+    if isinstance(a, torch.Tensor):
+        return [] if (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                      and torch.equal(a, b)) else [what]
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            return [what]
+        return [w for k in a for w in _unequal(a[k], b[k], f'{what}.{k}')]
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            return [what]
+        return [w for i, (x, y) in enumerate(zip(a, b))
+                for w in _unequal(x, y, f'{what}[{i}]')]
+    return [] if a == b else [what]
+
+
+class CliHooks:
+    """Wraps, for runs of the train CLI: ``train_cli.validate`` (the
+    launches of each validation apart, its wall), ``build_train_state``
+    (keeps the net's state dict as imported, before any step) and
+    ``CheckpointManager.load`` (keeps the restored net and optimizer state
+    dicts and update count)."""
+
+    def __init__(self, read_counts):
+        self.read_counts = read_counts
+        self.val_counts, self.imported, self.restored = {}, None, None
+
+    def __enter__(self):
+        from softgroup_tpu_torch.tools_impl import train_cli
+        from softgroup_tpu_torch.util.checkpoint import CheckpointManager
+        self.saved = [(train_cli, 'validate', train_cli.validate),
+                      (train_cli, 'build_train_state',
+                       train_cli.build_train_state),
+                      (CheckpointManager, 'load', CheckpointManager.load)]
+
+        def validate(*a, _f=train_cli.validate, **kw):
+            before = self.read_counts()
+            out = _f(*a, **kw)
+            for k, v in self.read_counts().items():
+                self.val_counts[k] = self.val_counts.get(k, 0) + v \
+                    - before[k]
+            return out
+
+        def build_train_state(net, *a, _f=train_cli.build_train_state,
+                              **kw):
+            self.imported = _to_cpu(net.state_dict())
+            return _f(net, *a, **kw)
+
+        def load(mgr, state, *a, _f=CheckpointManager.load, **kw):
+            nxt = _f(mgr, state, *a, **kw)
+            self.restored = dict(net=_to_cpu(state.net.state_dict()),
+                                 optimizer=_to_cpu(
+                                     state.optimizer.state_dict()),
+                                 updates=state.step.updates)
+            return nxt
+        train_cli.validate = validate
+        train_cli.build_train_state = build_train_state
+        CheckpointManager.load = load
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, f in self.saved:
+            setattr(owner, name, f)
+
+
+def run_cli(label: str, argv: list, reset_counts, read_counts, card):
+    """``train_cli.main(argv)`` with the counters set to 0 just before and
+    read just after; prints its steps and epochs and checks the losses and
+    the schedule.  Returns (stats, training launches, validation launches,
+    hooks)."""
+    import math
+
+    import torch
+
+    from softgroup_tpu_torch.tools_impl import train_cli
+    from softgroup_tpu_torch.util.config import load_config
+    from softgroup_tpu_torch.util.optim import cosine_after_step_schedule
+    cfg = load_config(argv[0])
+    stats = {}
+    torch.cuda.reset_peak_memory_stats()
+    with CliHooks(read_counts) as hooks:
+        reset_counts()
+        t = time.perf_counter()
+        train_cli.main(argv, stats=stats)
+        wall = time.perf_counter() - t
+        counts = read_counts()
+    val = hooks.val_counts or {k: 0 for k in counts}
+    train = {k: v - val[k] for k, v in counts.items()}
+    epochs = int(argv[argv.index('--epochs') + 1])
+    sched = cosine_after_step_schedule(cfg.optimizer.lr, cfg.step_epoch,
+                                       epochs, stats['steps_per_epoch'])
+    cap = cfg.tpu.caps.voxels[0]
+    for s in stats['steps']:
+        log(f'[train-cli] {label} epoch {s["epoch"]} step {s["step"]} '
+            f'(update {s["update"]}): data_wait_ms={s["data_ms"]:.3f} '
+            f'iter_ms={s["iter_ms"]:.3f} (of which the step '
+            f'{s["iter_ms"] - s["data_ms"]:.3f}) lr={s["lr"]!r} level-0 '
+            f'voxels={s["l0_voxels"]} (cap {cap}) peak_mem_mb={s["mem_mb"]} '
+            + ' '.join(f'{k}={v:.6g}' for k, v in s['logs'].items())
+            + f' [{card}]')
+        bad = [k for k, v in s['logs'].items() if not math.isfinite(v)]
+        if bad:
+            raise RuntimeError(f'{label}: non-finite {bad}')
+        if s['lr'] != sched(s['update']):
+            raise RuntimeError(f'{label}: update {s["update"]} ran at lr '
+                               f'{s["lr"]}, the schedule gives '
+                               f'{sched(s["update"])}')
+    if [s['update'] for s in stats['steps']] != list(range(
+            (stats['start_epoch'] - 1) * stats['steps_per_epoch'],
+            epochs * stats['steps_per_epoch'])):
+        raise RuntimeError(f'{label}: updates out of order')
+    for e in stats['epochs']:
+        val_s = f'{e["val_s"]:.3f} s' if e['val_s'] is not None else 'none'
+        log(f'[train-cli] {label} epoch {e["epoch"]}: training wall '
+            f'{e["train_s"]:.3f} s, checkpoint save {e["save_ms"]:.3f} ms, '
+            f'validation {val_s}'
+            + (' ' + ' '.join(f'{k}={v:.6g}' for k, v in e['val'].items())
+               if e['val'] else '') + f' [{card}]')
+        n = e['epoch']
+        if e['val'] is None and (n % max(cfg.get('save_freq', 4), 1) == 0
+                                 or n & (n - 1) == 0):
+            raise RuntimeError(f'{label}: epoch {n}\'s scheduled '
+                               f'validation returned no metrics')
+    data = sorted(s['data_ms'] for s in stats['steps'])
+    iters = sorted(s['iter_ms'] for s in stats['steps'])
+    steps = sorted(s['iter_ms'] - s['data_ms'] for s in stats['steps'])
+    log(f'[train-cli] {label}: main() {wall:.3f} s; {len(iters)} steps, '
+        f'iter ms median={statistics.median(iters):.3f} min={iters[0]:.3f} '
+        f'max={iters[-1]:.3f}; data wait ms median='
+        f'{statistics.median(data):.3f} min={data[0]:.3f} '
+        f'max={data[-1]:.3f}; step (iter - data wait) ms median='
+        f'{statistics.median(steps):.3f} min={steps[0]:.3f} '
+        f'max={steps[-1]:.3f}; data wait share of the steps\' wall '
+        f'{sum(data) / sum(iters):.4f}; peak memory '
+        f'{stats["steps"][-1]["mem_mb"]} MB'
+        + (f'; checkpoint load {stats["load_ms"]:.3f} ms'
+           if 'load_ms' in stats else '') + f' [{card}]')
+    # past each epoch's first step (which waits for the workers' start)
+    steady = [s for s in stats['steps'] if s['step'] > 1]
+    data = sorted(s['data_ms'] for s in steady)
+    first = [round(s['data_ms'], 3) for s in stats['steps'] if s['step'] == 1]
+    log(f'[train-cli] {label}: steady state ({len(steady)} steps, each '
+        f'epoch\'s first left out): data wait ms median='
+        f'{statistics.median(data):.3f} min={data[0]:.3f} max={data[-1]:.3f}'
+        f'; iter ms median='
+        f'{statistics.median(s["iter_ms"] for s in steady):.3f}; data wait '
+        f'share {sum(data) / sum(s["iter_ms"] for s in steady):.4f}; each '
+        f'epoch\'s first step waits {first} ms [{card}]')
+    log(f'[main-path] train CLI {label}: launches in training '
+        f'{json.dumps(train)}; in validation {json.dumps(val)}')
+    return stats, train, val, hooks
+
+
+def train_cli_phase(paths, batch, reset_counts, read_counts, card,
+                    dev) -> tuple:
+    """Phase 4b (see the module docstring); returns the launch counts of
+    the stage-1 and the stage-2 CLI runs (training and validation)."""
+    import math
+    import os
+
+    import torch
+
+    from softgroup_tpu_torch.data import EpochSampler, build_dataset
+    from softgroup_tpu_torch.model.blocks import MaskedBatchNorm
+    from softgroup_tpu_torch.tools_impl import test_cli, train_cli
+    from softgroup_tpu_torch.util.checkpoint import (load_weights,
+                                                     reference_state_dict,
+                                                     should_keep)
+    from softgroup_tpu_torch.util.config import load_config
+    cfg1, cfg2 = load_config(paths[0]), load_config(paths[1])
+
+    # what one worker does for a batch, stage by stage, in this process
+    ds = build_dataset(cfg1.data.train)
+    idx = EpochSampler(len(ds)).indices(1)[:cfg1.dataloader.train.batch_size]
+    t0 = time.perf_counter()
+    samples = [ds[i] for i in idx]
+    t1 = time.perf_counter()
+    collated = ds.collate_fn(samples)
+    t2 = time.perf_counter()
+    caps1 = train_cli.caps_from_cfg(cfg1)
+    train_cli.make_post(caps1, cfg1.tpu.num_levels, cfg1.model.ignore_label)(
+        collated)
+    t3 = time.perf_counter()
+    log(f'[train-cli] one batch of {len(idx)} rooms built in the main '
+        f'process: load + augment {(t1 - t0) * 1e3:.3f} ms, collate '
+        f'{(t2 - t1) * 1e3:.3f} ms, padded batch + host pyramid '
+        f'{(t3 - t2) * 1e3:.3f} ms; the loader runs '
+        f'{cfg1.dataloader.train.num_workers} workers')
+    del samples, collated
+
+    def ckpt_dir(cfg):
+        return os.path.join(cfg.work_dir, 'ckpt')
+
+    def check_kept(cfg, last):
+        kept = sorted(int(f.split('_')[1]) for f in os.listdir(ckpt_dir(cfg))
+                      if f.startswith('epoch_'))
+        want = [e for e in range(1, last) if should_keep(e, cfg.save_freq)] \
+            + [last]
+        log(f'[train-cli] {os.path.basename(cfg.work_dir)} checkpoints: '
+            f'epochs {kept} (should_keep at save_freq {cfg.save_freq}: '
+            f'{want})')
+        if kept != want:
+            raise RuntimeError(f'checkpoints {kept}, not {want}')
+
+    def need(label, counts, keys):
+        missing = [k for k in keys if counts[k] <= 0]
+        if missing:
+            raise RuntimeError(f'kernels never launched on {label}: '
+                               f'{missing}')
+
+    # stage 1: the backbone, all parameters, semantic only
+    stats1, train1, val1, _ = run_cli(
+        'stage 1', [paths[0], '--epochs', '2'], reset_counts, read_counts,
+        card)
+    need('the train CLI, stage 1', train1, (
+        'rulebook_conv', 'row_gather', 'rulebook_conv_dw',
+        'sorted_segment_sum'))
+    check_kept(cfg1, 2)
+
+    # its last weights as a reference .pth: the running statistics set from
+    # one train-mode pass over a CLI batch (a few dozen updates at momentum
+    # 0.1 leave them short of the weights' own, and stage 2 runs its frozen
+    # backbone on them), the semantic head's final bias lifted on two thing
+    # classes (else grouping has nothing to group)
+    net = train_cli.build_net(cfg1, dev)
+    load_weights(net, os.path.join(ckpt_dir(cfg1), 'epoch_2'))
+    norms = [m for m in net.modules() if isinstance(m, MaskedBatchNorm)]
+    for m in norms:
+        m.momentum = 1.0
+    net.train()
+    with torch.no_grad():
+        net.loss_forward(batch.to(dev), cfg1.model,
+                         train_cli.caps_from_cfg(cfg1),
+                         generator=torch.Generator().manual_seed(0))
+    sd = _to_cpu(net.state_dict())
+    del net, norms
+    sd['semantic_linear.final_bias'][2:4] = SEMANTIC_BIAS
+    torch.save({'net': reference_state_dict(sd)}, paths[2])
+
+    # stage 2: the frozen backbone, the instance head
+    stats2, train2, val2, hooks2 = run_cli(
+        'stage 2', [paths[1], '--epochs', '2'], reset_counts, read_counts,
+        card)
+    need('the train CLI, stage 2', train2, (
+        'rulebook_conv', 'row_gather', 'cell_neighbor_join',
+        'rulebook_conv_dw', 'sorted_segment_sum', 'sorted_key_rules_join'))
+    need('the train CLI, stage 2 validation', val2, ('keyed_conv',))
+    if not any(s['logs']['num_pos'] + s['logs']['num_neg'] > 0
+               for s in stats2['steps']):
+        raise RuntimeError('stage 2: no proposal on any step')
+    # positives need offsets that part the rooms' touching boxes, which a
+    # few dozen updates do not learn; phase 5's small train step (separated
+    # instances) and the CPU tests hold the positive path
+    log(f'[train-cli] stage 2 positive proposals a step: '
+        f'{[int(s["logs"]["num_pos"]) for s in stats2["steps"]]}; offset MAE '
+        f'of the same backbone weights in eval mode: with stage 1\'s '
+        f'running statistics (stage 1, epoch 2) '
+        f'{stats1["epochs"][-1]["val"]["Offset_MAE"]:.6g}, with the set ones '
+        f'(stage 2, epoch 1) {stats2["epochs"][0]["val"]["Offset_MAE"]:.6g}')
+    fixed = tuple(cfg2.model.fixed_modules)
+    frozen = sorted(k for k in sd if k.split('.')[0] in fixed)
+    bad = [k for k in frozen if not torch.equal(hooks2.imported[k], sd[k])]
+    for e in (1, 2):
+        got = torch.load(os.path.join(ckpt_dir(cfg2), f'epoch_{e}'),
+                         map_location='cpu', weights_only=True)['net']
+        bad += [f'epoch {e}: {k}' for k in frozen
+                if not torch.equal(got[k], sd[k])]
+    log(f'[train-cli] stage 2 frozen backbone ({", ".join(fixed)}): '
+        f'{len(frozen) * 3 - len(bad)}/{len(frozen) * 3} tensors equal '
+        f'stage 1\'s written weights after the import and after epochs 1 '
+        f'and 2')
+    if bad:
+        raise RuntimeError(f'stage 2 frozen backbone moved: {bad[:5]}')
+
+    # --resume: epoch 3 from epoch 2's checkpoint
+    stats3, _, _, hooks3 = run_cli(
+        'stage 2 --resume', [paths[1], '--resume', '--epochs', '3'],
+        reset_counts, read_counts, card)
+    spe = stats2['steps_per_epoch']
+    saved = torch.load(os.path.join(ckpt_dir(cfg2), 'epoch_2'),
+                       map_location='cpu', weights_only=True)
+    bad = _unequal(hooks3.restored['net'], saved['net'], 'net') \
+        + _unequal(hooks3.restored['optimizer'], saved['optimizer'],
+                   'optimizer')
+    log(f'[train-cli] resume: start epoch {stats3["start_epoch"]}, first '
+        f'update {stats3["steps"][0]["update"]} (2 x {spe} steps), restored '
+        f'update count {hooks3.restored["updates"]}, restored net and '
+        f'optimizer state equal the saved epoch-2 state bit for bit: '
+        f'{not bad}')
+    if (stats3['start_epoch'] != 3 or stats3['steps'][0]['update'] != 2 * spe
+            or hooks3.restored['updates'] != 2 * spe or bad):
+        raise RuntimeError(f'resume restored the wrong state: {bad[:5]}')
+    check_kept(cfg2, 3)
+
+    # the test CLI on stage 2's epoch-2 checkpoint: the in-loop validation
+    t = time.perf_counter()
+    metrics = test_cli.main([paths[1], '--checkpoint',
+                             os.path.join(ckpt_dir(cfg2), 'epoch_2')])
+    want = next(e['val'] for e in stats2['epochs'] if e['epoch'] == 2)
+    same = sorted(metrics) == sorted(want) and all(
+        metrics[k] == want[k] or (math.isnan(metrics[k])
+                                  and math.isnan(want[k])) for k in want)
+    log(f'[train-cli] test CLI on stage 2\'s epoch-2 checkpoint: '
+        f'{time.perf_counter() - t:.3f} s, '
+        + ' '.join(f'{k}={v:.6g}' for k, v in metrics.items())
+        + f'; equal to epoch 2\'s validation: {same}')
+    if not same:
+        raise RuntimeError(f'test CLI {metrics} vs validation {want}')
+
+    # one step of each stage under the profiler, on a batch of the loader
+    # (its copy to the card included), from the stage's last checkpoint
+    for label, cfg, path, epoch in (('stage 1', cfg1, paths[0], 2),
+                                    ('stage 2', cfg2, paths[1], 3)):
+        caps = train_cli.caps_from_cfg(cfg)
+        net = train_cli.build_net(cfg, dev)
+        load_weights(net, os.path.join(ckpt_dir(cfg), f'epoch_{epoch}'))
+        state, _ = train_cli.build_train_state(net, cfg, caps, spe)
+        gen = torch.Generator().manual_seed(1)
+        state.step(batch.to(dev, non_blocking=True), generator=gen)
+        profile(lambda: state.step(batch.to(dev, non_blocking=True),
+                                   generator=gen),
+                f'one train CLI step, {label} '
+                f'({os.path.basename(path)})', card)
+        del net, state
+    return (dict((k, train1[k] + val1[k]) for k in train1),
+            dict((k, train2[k] + val2[k]) for k in train2))
 
 
 def host_builders(data: dict) -> None:

@@ -37,6 +37,9 @@ class CustomDataset:
         self.with_label = with_label
         self.repeat = repeat
         self.logger = logger
+        # every augmentation draws from rng; a loader worker reseeds it
+        # from seed (data/loader.py)
+        self.seed = seed
         self.rng = np.random.RandomState(seed)
         self.mode = 'train' if training else 'test'
         self.filenames = self.get_filenames()

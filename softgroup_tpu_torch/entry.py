@@ -27,10 +27,16 @@ levels, 20 semantic / 18 instance classes).
 * Training: the model section of ``configs/softgroup/softgroup_scannet.yaml``
   (``train_cfg``), the batch-4 capacities of ``tools/bench_train_batch4.py``
   (``train_capacities``), a collated batch of scenes and the train state
-  (net, Adam, step).  Counterpart of ``tools/train.py``'s ``caps_from_cfg``
-  / ``build_net`` and ``tools/bench_train_batch4.py``.
+  (net, Adam, step).  Counterpart of ``tools/bench_train_batch4.py``.
+* The train CLI (``tools_impl/train_cli.py``, counterpart of
+  ``tools/train.py``): a whole config such as
+  ``configs/softgroup/softgroup_scannet_backbone.yaml`` (``SCANNET_YAMLS``:
+  the ScanNet recipe's two stages) trained through the dataset and its
+  training loader, the cosine-after-step schedule, gradient clipping,
+  checkpoints with ``--resume``, and validation through
+  ``tools_impl.test_runner.run_eval``; its capacities are ``caps_from_cfg``.
 
-``chip_smoke.py`` drives all five.  Everything runs on ``device`` (default the
+``chip_smoke.py`` drives all six.  Everything runs on ``device`` (default the
 card); pass ``device="cpu"`` for the plain PyTorch versions of the kernels.
 """
 
@@ -46,12 +52,7 @@ from .model.softgroup import Capacities, SceneBatch, SoftGroupNet
 from .tools_impl.test_runner import InferenceRunner
 from .train import TrainState, make_train_step
 from .util.config import Config, load_config
-from .util.optim import freeze
-
-# the optimizer section of configs/softgroup/softgroup_scannet.yaml:
-# {type: Adam, lr: 0.004}; eps is optax.adam's
-TRAIN_LR, TRAIN_EPS = 0.004, 1e-8
-
+from .util.optim import build_optimizer, freeze
 
 def flagship_cfg(channels: int = 32, num_blocks: int = 7) -> Config:
     return Config(dict(
@@ -83,6 +84,11 @@ CONFIGS = os.path.join(
 PLUS_YAML = os.path.join(CONFIGS, 'softgroup_pp', 'softgroup++_scannet.yaml')
 S3DIS_YAML = os.path.join(CONFIGS, 'softgroup', 'softgroup_s3dis_fold5.yaml')
 KITTI_YAML = os.path.join(CONFIGS, 'softgroup', 'softgroup_kitti.yaml')
+# the ScanNet recipe: the backbone stage, then the stage that trains the
+# instance head on the frozen backbone
+SCANNET_YAMLS = tuple(
+    os.path.join(CONFIGS, 'softgroup', f'softgroup_scannet{s}.yaml')
+    for s in ('_backbone', ''))
 
 
 def plus_cfg() -> Config:
@@ -229,11 +235,12 @@ def build_train_batch(scenes, cfg: Config, caps: Capacities,
 
 def build_train_state(net: SoftGroupNet, cfg: Config, caps: Capacities,
                       frozen_modules=()) -> TrainState:
-    """Adam over the trainable parameters of ``net`` (the yaml's
-    optimizer) and its train step;
-    ``frozen_modules`` (e.g. ``cfg.fixed_modules``) keep ``requires_grad``
-    False."""
-    opt = torch.optim.Adam(freeze(net, frozen_modules), lr=TRAIN_LR,
-                           eps=TRAIN_EPS)
+    """The optimizer section of ``configs/softgroup/softgroup_scannet.yaml``
+    (Adam) over the trainable parameters of ``net`` at its constant
+    learning rate (no schedule, no clip: ``tools_impl/train_cli.py`` adds
+    them) and its train step; ``frozen_modules`` (e.g.
+    ``cfg.fixed_modules``) keep ``requires_grad`` False."""
+    opt = build_optimizer(freeze(net, frozen_modules),
+                          load_config(SCANNET_YAMLS[1]).optimizer)
     return TrainState(net, opt, make_train_step(net, cfg, caps, opt,
                                                 frozen_modules))

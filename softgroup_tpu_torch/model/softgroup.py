@@ -53,6 +53,22 @@ class SceneBatch:
     vox_in: torch.Tensor | None = None
     point_perm: torch.Tensor | None = None   # (P,) original index of a row
 
+    def apply(self, fn) -> 'SceneBatch':
+        """A copy with ``fn`` applied to each of its tensors."""
+        return SceneBatch(**{
+            k: (v.apply(fn) if isinstance(v, Pyramid)
+                else None if v is None else fn(v))
+            for k, v in vars(self).items()})
+
+    def to(self, device, non_blocking: bool = False) -> 'SceneBatch':
+        return self.apply(lambda t: t.to(device, non_blocking=non_blocking))
+
+    def pin_memory(self) -> 'SceneBatch':
+        """The batch in page-locked host memory (what
+        ``torch.utils.data.DataLoader(pin_memory=True)`` calls), so that
+        ``to(device, non_blocking=True)`` copies it asynchronously."""
+        return self.apply(torch.Tensor.pin_memory)
+
 
 class Capacities(NamedTuple):
     """Static paddings: every dynamic size becomes a capacity + mask."""

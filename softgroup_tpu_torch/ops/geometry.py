@@ -39,9 +39,10 @@ class LevelGeom:
     ckey: torch.Tensor | None = None    # (V,) sorted keys (keyed levels)
     spatial_d: int = 0
 
-    def to(self, device) -> 'LevelGeom':
+    def apply(self, fn) -> 'LevelGeom':
+        """A copy with ``fn`` applied to each of its tensors."""
         return replace(self, **{
-            k: getattr(self, k).to(device) for k in (
+            k: fn(getattr(self, k)) for k in (
                 'vox_coords', 'vox_valid', 'subm_rules', 'down_rules',
                 'parent_idx', 'child_tap', 'dims', 'ckey')
             if getattr(self, k) is not None})
@@ -53,9 +54,13 @@ class Pyramid:
     p2v: torch.Tensor            # (P,) int32 point -> level-0 voxel (cap: pad)
     point_valid: torch.Tensor    # (P,) bool
 
+    def apply(self, fn) -> 'Pyramid':
+        """A copy with ``fn`` applied to each of its tensors."""
+        return Pyramid(tuple(lv.apply(fn) for lv in self.levels),
+                       fn(self.p2v), fn(self.point_valid))
+
     def to(self, device) -> 'Pyramid':
-        return Pyramid(tuple(lv.to(device) for lv in self.levels),
-                       self.p2v.to(device), self.point_valid.to(device))
+        return self.apply(lambda t: t.to(device))
 
 
 @dataclass

@@ -7,10 +7,11 @@
         --checkpoint softgroup_kitti.pth --out results/ [--max-scenes N] \
         [--device cpu]
 
-``--checkpoint`` takes a reference ``.pth`` (its weights are imported by
-``util.checkpoint.import_reference_weights``); without one the net keeps
-its seeded init.  The net runs on the card unless ``--device cpu`` is
-given.  ``--out`` writes what the tasks produced: semantic ``.npy``
+``--checkpoint`` takes a checkpoint of the port's train CLI
+(``work_dir/ckpt/epoch_N``) or a reference ``.pth`` (its weights are
+imported by ``util.checkpoint.import_reference_weights``), told apart by
+their keys; without one the net keeps its seeded init.  The net runs on
+the card unless ``--device cpu`` is given.  ``--out`` writes what the tasks produced: semantic ``.npy``
 files, instance mask ``.txt`` files, SemanticKITTI ``.label`` files.
 """
 
@@ -26,8 +27,7 @@ import numpy as np
 
 from .. import entry
 from ..data import DATASETS
-from ..util.checkpoint import (import_reference_weights,
-                               load_reference_state_dict)
+from ..util.checkpoint import load_weights
 from ..util.config import load_config
 from ..util.logger import get_root_logger
 from ..util.rle import rle_decode
@@ -37,7 +37,8 @@ from .test_runner import run_split, summarize
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description='softgroup_tpu_torch test')
     p.add_argument('config')
-    p.add_argument('--checkpoint', default=None, help='reference .pth')
+    p.add_argument('--checkpoint', default=None,
+                   help='a train CLI checkpoint or a reference .pth')
     p.add_argument('--out', default=None, help='directory for result files')
     p.add_argument('--max-scenes', type=int, default=0)
     p.add_argument('--device', default='cuda',
@@ -56,12 +57,7 @@ def main(argv=None, scene_stats: list | None = None) -> dict:
     net = entry.build_net(cfg.model, device=args.device,
                           bf16=bool(cfg.get('tpu', {}).get('bf16', True)))
     if args.checkpoint:
-        if not args.checkpoint.endswith('.pth'):
-            raise ValueError('--checkpoint takes a reference .pth; the '
-                             'port writes no checkpoints of its own yet')
-        net.load_state_dict(import_reference_weights(
-            net.state_dict(), load_reference_state_dict(args.checkpoint),
-            logger))
+        load_weights(net, args.checkpoint, logger)
     results, dataset = run_split(
         net, cfg, entry.caps_from_cfg(cfg), cfg.tpu.num_levels, logger,
         args.max_scenes, args.device, scene_stats)

@@ -1,6 +1,6 @@
 """One-device train step (counterpart of ``softgroup_tpu/parallel/mesh.py``
 ``TrainState`` / ``make_train_step`` without a mesh): ``loss_forward`` ->
-``backward`` -> optimizer step.
+``backward`` -> clip -> optimizer step at the scheduled learning rate.
 
 Frozen modules keep ``requires_grad`` False (no gradient is computed for
 them, as the reference leaves them out of ``value_and_grad``), and the
@@ -21,10 +21,51 @@ BACKBONE_NORM_MODULES = ('unet', 'output_norm', 'semantic_linear',
                          'offset_linear')
 
 
+class TrainStep:
+    """``step(batch, generator=None, rand=None) -> log_vars`` (detached
+    tensors on the batch's device).  ``rand``: the (2, 3) numbers of the
+    random quantization, else drawn from ``generator``.
+
+    ``updates`` counts the optimizer's updates; update k (0-based) runs at
+    ``schedule(k)`` where a schedule is given (``optax``'s count), else at
+    the optimizer's own learning rate.  ``clip_grad_norm``: the global
+    norm the trainable gradients are clipped to (none where unset)."""
+
+    def __init__(self, net: SoftGroupNet, cfg, caps,
+                 optimizer: torch.optim.Optimizer, frozen_modules=(),
+                 schedule: Callable[[int], float] | None = None,
+                 clip_grad_norm: float | None = None):
+        self.net, self.cfg, self.caps = net, cfg, caps
+        self.optimizer = optimizer
+        self.frozen = tuple(frozen_modules)
+        self.schedule = schedule
+        self.clip_grad_norm = clip_grad_norm
+        self.updates = 0
+
+    def __call__(self, batch, generator: torch.Generator | None = None,
+                 rand: torch.Tensor | None = None) -> dict:
+        set_train_modes(self.net, self.frozen)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss, log_vars = self.net.loss_forward(
+            batch, self.cfg, self.caps, generator=generator, rand=rand)
+        loss.backward()
+        if self.clip_grad_norm:
+            torch.nn.utils.clip_grad_norm_(
+                [p for g in self.optimizer.param_groups for p in g['params']],
+                self.clip_grad_norm)
+        if self.schedule is not None:
+            lr = self.schedule(self.updates)
+            for group in self.optimizer.param_groups:
+                group['lr'] = lr
+        self.optimizer.step()
+        self.updates += 1
+        return {k: v.detach() for k, v in log_vars.items()}
+
+
 class TrainState(NamedTuple):
     net: SoftGroupNet
     optimizer: torch.optim.Optimizer
-    step: Callable          # step(batch, generator=None, rand=None)
+    step: TrainStep
 
 
 def set_train_modes(net: SoftGroupNet, frozen_modules) -> None:
@@ -37,20 +78,8 @@ def set_train_modes(net: SoftGroupNet, frozen_modules) -> None:
 
 
 def make_train_step(net: SoftGroupNet, cfg, caps,
-                    optimizer: torch.optim.Optimizer, frozen_modules=()):
-    """``step(batch, generator=None, rand=None) -> log_vars`` (detached
-    tensors on the batch's device).  ``rand``: the (2, 3) numbers of the
-    random quantization, else drawn from ``generator``."""
-    frozen = tuple(frozen_modules)
-
-    def step(batch, generator: torch.Generator | None = None,
-             rand: torch.Tensor | None = None) -> dict:
-        set_train_modes(net, frozen)
-        optimizer.zero_grad(set_to_none=True)
-        loss, log_vars = net.loss_forward(batch, cfg, caps,
-                                          generator=generator, rand=rand)
-        loss.backward()
-        optimizer.step()
-        return {k: v.detach() for k, v in log_vars.items()}
-
-    return step
+                    optimizer: torch.optim.Optimizer, frozen_modules=(),
+                    schedule=None, clip_grad_norm=None) -> TrainStep:
+    """The train step of ``net`` (see ``TrainStep``)."""
+    return TrainStep(net, cfg, caps, optimizer, frozen_modules, schedule,
+                     clip_grad_norm)

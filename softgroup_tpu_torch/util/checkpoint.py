@@ -1,8 +1,19 @@
-"""Import of the reference's released ``.pth`` checkpoints: a copy of the
-import half of ``softgroup_tpu/util/checkpoint.py`` (``load_reference_state_dict``,
-``import_reference_weights`` and its name and layout translation).
+"""Checkpoints of the port's train CLI, and the import of the reference's
+released ``.pth`` checkpoints.
 
-The port's state dict keys are the JAX package's variable paths joined by
+``CheckpointManager`` (counterpart of ``softgroup_tpu/util/checkpoint.py``'s
+orbax manager, written with ``torch.save``): ``work_dir/ckpt/epoch_N``
+files, a ``latest`` file naming the newest, and the retention of
+``should_keep`` (the reference's ``util/utils.py:88-108``: power-of-2 and
+``save_freq`` epochs stay, every other one goes when the next is saved).
+A checkpoint holds the net's state dict (batch-norm running statistics
+included), the optimizer's, the epoch and the update count.
+``load_weights`` tells a port checkpoint from a reference ``.pth`` by its
+keys.
+
+The import half is a copy of the reference's (``load_reference_state_dict``,
+``import_reference_weights`` and its name and layout translation).  The
+port's state dict keys are the JAX package's variable paths joined by
 dots (``util/convert.py``), so the reference key of a port key is
 ``_translate`` of its parts:
   input_conv.kernel                  -> input_conv.0.weight
@@ -17,19 +28,122 @@ inverse: the port's weights in the reference's keys and layouts.
 
 from __future__ import annotations
 
+import contextlib
+import os
 import re
 
 import numpy as np
 import torch
 
 
+def is_power2(n: int) -> bool:
+    return n > 0 and (n & (n - 1)) == 0
+
+
+def should_keep(epoch: int, save_freq: int) -> bool:
+    """Whether epoch ``epoch``'s checkpoint outlives the next one."""
+    return is_power2(epoch) or bool(save_freq and epoch % save_freq == 0)
+
+
+def _write(path: str, write) -> None:
+    """``write(tmp)``, then ``tmp`` renamed to ``path``: a reader never
+    finds a half-written file."""
+    tmp = f'{path}.{os.getpid()}.tmp'
+    try:
+        write(tmp)
+        os.replace(tmp, path)
+    finally:
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(tmp)
+
+
+class CheckpointManager:
+    """Saves and restores a ``train.TrainState`` (net, optimizer, update
+    count) under ``work_dir/ckpt``."""
+
+    def __init__(self, work_dir: str, save_freq: int = 0, rank: int = 0):
+        self.dir = os.path.abspath(os.path.join(work_dir, 'ckpt'))
+        self.save_freq = save_freq
+        self.rank = rank
+        if rank == 0:
+            os.makedirs(self.dir, exist_ok=True)
+
+    def path(self, epoch: int) -> str:
+        return os.path.join(self.dir, f'epoch_{epoch}')
+
+    def save(self, state, epoch: int):
+        if self.rank != 0:
+            return
+        ckpt = dict(net=state.net.state_dict(),
+                    optimizer=state.optimizer.state_dict(), epoch=epoch,
+                    updates=state.step.updates)
+        _write(self.path(epoch), lambda p: torch.save(ckpt, p))
+
+        def latest(p):
+            with open(p, 'w') as f:
+                f.write(f'epoch_{epoch}')
+        _write(os.path.join(self.dir, 'latest'), latest)
+        prev = epoch - 1
+        if prev > 0 and not should_keep(prev, self.save_freq):
+            with contextlib.suppress(FileNotFoundError):
+                os.remove(self.path(prev))
+
+    def latest_epoch(self) -> int | None:
+        latest = os.path.join(self.dir, 'latest')
+        if not os.path.exists(latest):
+            return None
+        with open(latest) as f:
+            m = re.match(r'epoch_(\d+)', f.read().strip())
+        return int(m.group(1)) if m else None
+
+    def load(self, state, epoch: int | None = None) -> int:
+        """Restores ``state`` (net, optimizer, update count) from epoch
+        ``epoch``'s checkpoint (default the latest) and returns the epoch
+        to train next; 1, with ``state`` untouched, where there is none."""
+        if epoch is None:
+            epoch = self.latest_epoch()
+            if epoch is None:
+                return 1
+        ckpt = torch.load(self.path(epoch), map_location='cpu',
+                          weights_only=True)
+        state.net.load_state_dict(ckpt['net'])
+        state.optimizer.load_state_dict(ckpt['optimizer'])
+        state.step.updates = int(ckpt['updates'])
+        return int(ckpt['epoch']) + 1
+
+
+def _reference_arrays(sd: dict) -> dict:
+    return {k.replace('module.', ''): np.asarray(v.detach().cpu().numpy())
+            for k, v in sd.items()}
+
+
 def load_reference_state_dict(path: str) -> dict:
     """The numpy state dict of a reference ``.pth`` (its ``net`` entry
     where it has one), ``module.`` prefixes dropped."""
     ckpt = torch.load(path, map_location='cpu', weights_only=False)
+    return _reference_arrays(ckpt.get('net', ckpt))
+
+
+def load_weights(net, path: str, logger=None) -> None:
+    """Loads the weights of the checkpoint at ``path`` into ``net``: a
+    checkpoint of the train CLI (the net's own state dict keys, loaded as
+    they are) or a released ``.pth`` (through
+    ``import_reference_weights``)."""
+    if not os.path.isfile(path):
+        raise ValueError(f'{path} is not a checkpoint file: give a train '
+                         f'CLI checkpoint (work_dir/ckpt/epoch_N) or a '
+                         f'reference .pth')
+    ckpt = torch.load(path, map_location='cpu', weights_only=False)
     sd = ckpt.get('net', ckpt)
-    return {k.replace('module.', ''): np.asarray(v.detach().cpu().numpy())
-            for k, v in sd.items()}
+    own = net.state_dict()
+    if set(sd) == set(own):
+        net.load_state_dict(sd)
+        if logger:
+            logger.info(f'loaded the port checkpoint {path} (epoch '
+                        f'{ckpt.get("epoch")})')
+        return
+    net.load_state_dict(import_reference_weights(
+        own, _reference_arrays(sd), logger))
 
 
 _BN_LEAF = {'scale': 'weight', 'bias': 'bias', 'mean': 'running_mean',

@@ -186,7 +186,8 @@ def test_port_imports_no_jax():
         '             "data.s3dis", "evaluation.instance_eval",\n'
         '             "data.kitti", "evaluation.panoptic_eval",\n'
         '             "util.checkpoint", "util.logger",\n'
-        '             "tools_impl.test_cli"):\n'
+        '             "tools_impl.test_cli", "tools_impl.train_cli",\n'
+        '             "util.optim", "train"):\n'
         '    assert "softgroup_tpu_torch." + name in sys.modules, name\n')
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)

@@ -428,16 +428,23 @@ def test_build_dataset_and_loader_match(rooms, kind):
 
 def test_build_dataset_kitti_and_training_loader_raise(rooms):
     """``type: kitti`` is registered: it reads the dataset's
-    ``semantic-kitti.yaml``, which an S3DIS folder lacks; the training
-    loader still raises."""
+    ``semantic-kitti.yaml``, which an S3DIS folder lacks.  The training
+    loader works: the reference loader's shuffled batches of the S3DIS
+    train split, array for array (same seed, ``num_workers=0``)."""
     with pytest.raises(FileNotFoundError, match='semantic-kitti.yaml'):
         build_dataset(dict(type='kitti', data_root=rooms, prefix='val',
                            suffix='.bin'))
-    ds = build_dataset(dict(type='s3dis', data_root=rooms, prefix='Area_5',
-                            suffix='_inst_nostuff.pth', training=False,
-                            voxel_cfg=Config(VOXEL_CFG)))
-    with pytest.raises(NotImplementedError, match='training-data slice'):
-        build_dataloader(ds, batch_size=4, training=True)
+    cfg = dict(type='s3dis', data_root=rooms, prefix='Area_5',
+               suffix='_inst_nostuff.pth', training=True, seed=3,
+               voxel_cfg=Config(VOXEL_CFG))
+    mine = build_dataloader(build_dataset(cfg), batch_size=2, training=True)
+    ref = jax_build_dataloader(jax_build_dataset(cfg), batch_size=2,
+                               training=True)
+    mine.set_epoch(1)
+    ref.set_epoch(1)
+    got, want = list(mine), list(ref)
+    assert len(got) == len(want) == len(mine) == 1
+    _assert_same(got[0], want[0], 's3dis train')
 
 
 # ---------------------------------------------------------------------------
