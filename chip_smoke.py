@@ -54,6 +54,25 @@ non-zero):
      metrics and the ``.label`` files checked; K3's int64 census; one
      request's forward under the profiler; and a small sweep through the
      runner on the card (f32) against the CPU;
+  3e. the SoftGroup++ S3DIS serving path: phase 3c's two rooms through
+     ``run_eval`` of ``softgroup++_s3dis_fold5.yaml`` (no x4_split,
+     lvl_fusion, scene-pyramid grouping on int64 cell keys) at full width,
+     counters set to 0 just before and read just after, with each room's
+     caps, level-0 voxels, per-class pyramid levels, grouping cells filled
+     and dropped, stage times and counts, the metrics and ``run_eval``'s
+     wall; K3's int64 census; one forward under the profiler;
+  3f. the SoftGroup++ STPLS3D serving path: a synthetic ~1M-point aerial
+     tile (``stpls3d_tile``: 170 m a side, ~433k level-0 voxels at the
+     yaml's 1/3 m, the lifted classes above 1e5 active voxels: level 2)
+     through ``run_eval`` of ``softgroup++_stpls3d.yaml`` (16 wide, colour
+     only in, 300 proposals) as in 3e; then ``TRAIN_STEPS`` steps of
+     ``softgroup_stpls3d.yaml``'s train state on the tile (pair keys,
+     ``match_low_quality``, ``semantic_weight``), counted apart;
+  3g. ``exact_ball_query``: the flagship request with the point-level
+     radius-graph grouping on rooms of seeds 100-102, counted; each
+     request's grouping again on the CPU from the card's scores and
+     offsets (the same partition and labels), and its time on the card
+     beside ``cell_cluster_csr``'s;
   4. the training path: the flagship ScanNet train step (the yaml's model
      section, batch 4 x 250k-point rooms, bf16) in both modes of the recipe
      (frozen backbone, then all params), 1 warm-up and 3 timed steps each,
@@ -64,7 +83,7 @@ non-zero):
      ``_inst_nostuff.pth`` format, then ``tools_impl.train_cli.main`` on
      copies of the two ScanNet yamls (only ``data_root``, ``work_dir`` and
      stage 2's ``pretrain`` changed): stage 1
-     (``softgroup_scannet_backbone.yaml``) for 2 epochs with validation;
+     (``softgroup_scannet_backbone.yaml``) for 1 epoch with validation;
      stage 1's last weights written as a reference ``.pth`` (the batch
      norms' running statistics set from one train-mode pass over a CLI
      batch, the semantic head's bias lifted) for stage 2
@@ -80,17 +99,41 @@ non-zero):
      metrics, and stage 2's positive proposals a step;
      one step of each stage under the profiler.  One stage-1 step on a
      CLI batch is recorded in phase 2, and its K1 / K2 / K5 / K6 calls at
-     the yaml's capacities are held to their plain versions there;
+     the yaml's capacities are held to their plain versions there.  Then
+     stage 2's refinement at the CLI's capacities on its positive branch,
+     card vs CPU (``cli_positive_check``: the batch's instances as the
+     proposals);
+  4c. the KITTI train CLI: one ray-cast sweep in each of the ten train
+     sequences (seeds 410-419, repeat 4: ten steps of four) and phase 3d's
+     two validation sweeps, ``train_cli.main`` on a copy of
+     ``softgroup_kitti.yaml`` (all parameters, the instance branch from a
+     seeded ``.pth`` with the semantic head lifted, clip 35, 4 workers) for
+     one epoch with its validation, counters set to 0 just before and read
+     just after; per step the pre-clip gradient norm and whether the clip
+     bound, ``num_pos``, the losses, data wait and step time; one step
+     under the profiler.  Its K1 (input conv 1->32, level 0) / K2 / K3
+     (int64) / K5 / K6 calls at the yaml's capacities, recorded in phase 2,
+     are held to their plain versions there;
   5. small inputs through the card (f32) against the same port on the CPU
      (plain PyTorch versions of every kernel): a request, then a train step
      held gradient leaf by gradient leaf against control runs
-     (``small_train_check``).
+     (``small_train_check``); a request at an odd
+     ``instance_voxel_cfg.spatial_shape`` (9: rulebook levels in the
+     refinement); the SoftGroup++ S3DIS runner on int64 keys; the train
+     step again on int64 keys with low-quality matches and class weights.
+Each phase starts with the earlier phases' tensors freed and the
+peak-memory counter reset.  Phase 2 also records the ++ S3DIS and ++
+STPLS3D requests (K1, K2, K4 and K3 int64 at their shapes; STPLS3D's K1
+and K4 16 wide), one STPLS3D train step (K5 16 wide), the
+``exact_ball_query`` request (its K2 candidate gather) and one KITTI CLI
+step, and holds each of those calls to its plain version.
 The line before the last is one JSON object of per-kernel numbers; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import statistics
 import subprocess
@@ -130,6 +173,22 @@ SCANNET_VAL_SEED0 = 650
 SCANNET_POINTS = 110000
 SCANNET_TRAIN_ROOMS = 20
 SCANNET_VAL_ROOMS = 2
+# the SoftGroup++ S3DIS and STPLS3D yamls (phases 3e, 3f) and STPLS3D's
+# training yaml, under configs/
+PLUS_S3DIS_YAML = 'softgroup_pp/softgroup++_s3dis_fold5.yaml'
+PLUS_STPLS3D_YAML = 'softgroup_pp/softgroup++_stpls3d.yaml'
+STPLS3D_YAML = 'softgroup/softgroup_stpls3d.yaml'
+# phase 3f's aerial tile: ~1M points over 170 m x 170 m, ~433k level-0
+# voxels at the yaml's 1/3 m (its caps: 1048576 points, 524288 voxels)
+STPLS3D_SEED = 500
+STPLS3D_POINTS = 1000000
+STPLS3D_EXTENT = 170.0
+# phase 4c's KITTI train split: one sweep in each of the ten train
+# sequences (seeds 410-419), repeat 4 at batch 4: ten steps an epoch
+KITTI_TRAIN_SEQS = (0, 1, 2, 3, 4, 5, 6, 7, 9, 10)
+KITTI_TRAIN_SEED0 = 410
+KITTI_TRAIN_REPEAT = 4
+KITTI_TRAIN_STEPS = 10
 
 
 def small_capacities():
@@ -214,6 +273,7 @@ def main() -> int:
         from softgroup_tpu_torch.ops import join_kernel as jk
         from softgroup_tpu_torch.ops import rulebook, sparse_conv
         from softgroup_tpu_torch.data.synthetic import collate_scenes
+        from softgroup_tpu_torch.tools_impl import train_cli
         from softgroup_tpu_torch.time_kernels import (
             Recorder, bound, cell_join_bound, cuda_ms, device_reading,
             dw_bound, host_us, k4_args, k5_args, k6_trained_fill,
@@ -232,9 +292,15 @@ def main() -> int:
     t_phase = t_start = time.perf_counter()
 
     def phase_done(name):
+        # the next phase starts with the tensors of this one freed and the
+        # peak-memory counter reset, so each phase's peak is its own
         nonlocal t_phase
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         now = time.perf_counter()
-        log(f'[phase] {name}: {now - t_phase:.3f} s')
+        log(f'[phase] {name}: {now - t_phase:.3f} s; the next starts with '
+            f'{torch.cuda.memory_allocated() / 2**20:.1f} MB allocated')
         t_phase = now
 
     # ---- phase 1: build ------------------------------------------------
@@ -359,6 +425,69 @@ def main() -> int:
     if kstats['n_proposals'] <= 0:
         raise RuntimeError('warm-up KITTI request produced no proposals')
 
+    # the SoftGroup++ S3DIS request: the first of the S3DIS phase's rooms
+    # through the ++ S3DIS yaml's runner (no x4_split, lvl_fusion, the
+    # scene pyramid on int64 cell keys)
+    p3cfg = yaml_cfg(PLUS_S3DIS_YAML, s3dis_dir.name)
+    p3runner = entry.build_s3dis_runner(
+        lift(entry.build_net(p3cfg.model, seed=0, device=dev, bf16=True)),
+        p3cfg)
+    p3stats = forward_recorded(p3runner, first_scan(p3cfg), sites)
+    log(f'[warmup] SoftGroup++ S3DIS forward done: caps={p3stats["caps"]}, '
+        f'n_proposals={p3stats["n_proposals"]}')
+    p3rec = p3stats.pop('recorder')
+
+    # the SoftGroup++ STPLS3D request: an aerial tile through the ++
+    # STPLS3D yaml's runner (16 wide, colour only in, int64 cell keys), and
+    # one step of STPLS3D's training yaml on the same tile
+    st_dir = tempfile.TemporaryDirectory(prefix='stpls3d_')
+    t = time.perf_counter()
+    stcfg, tile = stpls3d_split(st_dir.name)
+    log(f'[warmup] a STPLS3D tile of {len(tile[0])} points written in '
+        f'{time.perf_counter() - t:.3f} s')
+    strunner = entry.build_s3dis_runner(
+        lift(entry.build_net(stcfg.model, seed=0, device=dev, bf16=True)),
+        stcfg)
+    ststats = forward_recorded(strunner, first_scan(stcfg), sites)
+    log(f'[warmup] SoftGroup++ STPLS3D forward done: caps={ststats["caps"]}'
+        f', n_proposals={ststats["n_proposals"]}')
+    strec = ststats.pop('recorder')
+    sttcfg = yaml_cfg(STPLS3D_YAML)
+    sttcaps = entry.caps_from_cfg(sttcfg)
+    st_state, _ = train_cli.build_train_state(
+        lift(train_cli.build_net(sttcfg, dev)), sttcfg, sttcaps, 1)
+    with Recorder([(sparse_conv, 'rulebook_conv_dw')]) as sttrec:
+        logs = st_state.step(entry.build_train_batch(
+            [tile], sttcfg.model, sttcaps,
+            scale=sttcfg.data.train.voxel_cfg.scale, device=dev),
+            generator=torch.Generator().manual_seed(0))
+        torch.cuda.synchronize()
+    log(f'[warmup] STPLS3D train step done: loss={float(logs["loss"]):.6f} '
+        f'num_pos={float(logs["num_pos"]):.0f}')
+    del st_state
+
+    # the flagship request with exact_ball_query (its candidate gather)
+    bcfg = cfg.copy()
+    bcfg.grouping_cfg.exact_ball_query = True
+    with Recorder([(grouping, 'row_gather')]) as brec:
+        entry.infer(net, batch, bcfg, caps)
+        torch.cuda.synchronize()
+
+    # the KITTI train CLI's sweeps and yaml copy, and one step of its train
+    # state on a batch built as its loader builds one (the yaml's caps)
+    kcli_dir = tempfile.TemporaryDirectory(prefix='kitti_cli_')
+    t = time.perf_counter()
+    kcli_path = kitti_train_root(kcli_dir.name)
+    log(f'[warmup] {len(KITTI_TRAIN_SEQS)} KITTI train sweeps written in '
+        f'{time.perf_counter() - t:.3f} s')
+    kcli_batch, kcrec, kcli_caps, logs = cli_record(
+        kcli_path, sites + [(sparse_conv, 'rulebook_conv_dw'),
+                            (gk, 'sorted_segment_sum')], dev, kitti_lift)
+    log(f'[warmup] KITTI train CLI step done: level-0 voxels '
+        f'{int(kcli_batch.pyramid.levels[0].vox_valid.sum())} (cap '
+        f'{kcli_caps.voxels[0]}), loss={logs["loss"]:.6f} num_pos='
+        f'{logs["num_pos"]:.0f} num_neg={logs["num_neg"]:.0f}')
+
     # the train CLI's rooms and yaml copies, and one stage-1 step on a
     # batch of its loader (the yaml's capacities)
     cli_dir = tempfile.TemporaryDirectory(prefix='scannet_')
@@ -367,9 +496,12 @@ def main() -> int:
     log(f'[warmup] {SCANNET_TRAIN_ROOMS} + {SCANNET_VAL_ROOMS} ScanNet '
         f'rooms of {SCANNET_POINTS} points written in '
         f'{time.perf_counter() - t:.3f} s')
-    cli_batch, crec, cli_caps = cli_record(
+    cli_batch, crec, cli_caps, logs = cli_record(
         cli_paths[0], sites + [(sparse_conv, 'rulebook_conv_dw'),
                                (gk, 'sorted_segment_sum')], dev)
+    log(f'[warmup] train CLI stage-1 step on a batch of its training split: '
+        f'level-0 voxels {int(cli_batch.pyramid.levels[0].vox_valid.sum())} '
+        f'(cap {cli_caps.voxels[0]}), loss={logs["loss"]:.6f}')
 
     train_batches = [make_train_batch(i) for i in range(TRAIN_STEPS + 1)]
     log(f'[warmup] {len(train_batches)} host batches of 4 x 250k points: '
@@ -462,11 +594,11 @@ def main() -> int:
         gather_calls, lambda a, k: a[0].dim() == 1
         and a[0].shape[0] == caps.grouping_cells + 1, 'label gather')[0])
 
-    def join_case(args, path):
+    def join_case(args, path, tag=''):
         keys, cen, cc, dims, offs, radius = args
         wide = ' int64' if keys.dtype == torch.int64 else ''
         cases.append(dict(
-            name=f'K3 cell_neighbor_join{wide} m={keys.shape[0]}',
+            name=f'K3 cell_neighbor_join{tag}{wide} m={keys.shape[0]}',
             key='cell_neighbor_join', path=path, route='cuda',
             source='softgroup_tpu_torch/csrc/join.cu',
             replaces='softgroup_tpu/ops/join_kernel.py:54',
@@ -496,6 +628,18 @@ def main() -> int:
         raise RuntimeError(f'the KITTI request joined {kitti_join[0].dtype} '
                            f'cell keys, not int64')
     join_case(kitti_join, 'kitti')
+    # the SoftGroup++ S3DIS and STPLS3D requests' and the KITTI train CLI
+    # step's, on int64 keys
+    p3join = p3rec.calls['cell_neighbor_join'][0][0]
+    stjoin = strec.calls['cell_neighbor_join'][0][0]
+    kcjoin = kcrec.calls['cell_neighbor_join'][0][0]
+    for args, path, tag in ((p3join, 's3dis_plus', ' s3dis++'),
+                            (stjoin, 'stpls3d_plus', ' stpls3d++'),
+                            (kcjoin, 'kitti_cli', ' KITTI CLI')):
+        if args[0].dtype != torch.int64:
+            raise RuntimeError(f'{path} joined {args[0].dtype} cell keys, '
+                               f'not int64')
+        join_case(args, path, tag)
 
     def keyed_case(label, args, kw, path='serving'):
         feats, w, out_keys, in_keys, d = args
@@ -525,13 +669,19 @@ def main() -> int:
     # the K1, K2 and K4 calls of the SoftGroup++ request, of the S3DIS
     # request (x4_split: four parts in one level-0 grid) and of the KITTI
     # request (the input conv at Cin 1) at their caps
-    for path, calls, rcaps, tag, n_heads, cin in (
+    # (and the SoftGroup++ S3DIS and STPLS3D requests: the heads gathered
+    # from the voxels, STPLS3D 16 wide with colour only in)
+    for path, calls, rcaps, tag, n_heads, cin, ch in (
             ('serving_plus', prec.calls, pstats['caps'], '++',
-             pcfg.semantic_classes + 3, 6),
-            ('s3dis', srec.calls, sstats['caps'], 's3dis', None, 6),
-            ('kitti', krec.calls, kstats['caps'], 'kitti', None, 1)):
+             pcfg.semantic_classes + 3, 6, 32),
+            ('s3dis', srec.calls, sstats['caps'], 's3dis', None, 6, 32),
+            ('kitti', krec.calls, kstats['caps'], 'kitti', None, 1, 32),
+            ('s3dis_plus', p3rec.calls, p3stats['caps'], 's3dis++',
+             p3cfg.model.semantic_classes + 3, 6, 32),
+            ('stpls3d_plus', strec.calls, ststats['caps'], 'stpls3d++',
+             stcfg.model.semantic_classes + 3, 3, 16)):
         for label, (a, kw) in request_args(calls, rcaps, tag, n_heads,
-                                           cin).items():
+                                           cin, ch).items():
             fam, label = label.split(' ', 1)
             if fam == 'K1':
                 conv_case(label, a, torch.bfloat16, path)
@@ -680,7 +830,49 @@ def main() -> int:
                     'train CLI devoxelize backward')
     segsum_case(f'train CLI devoxelize backward ({cpts}, 32) bf16', args,
                 kw, 'train_cli_backbone')
-    del rec, trec, prec, srec, crec, out
+    # STPLS3D's train step, 16 wide: K5 on level 0 and on the tiny U-Net
+    stv0, sti0 = sttcaps.voxels[0], sttcaps.inst_voxels[0]
+    for label, rows in ((f'L0 subm 16->16 bf16 (V0={stv0})', stv0),
+                        (f'tiny U-Net subm {sti0} 16->16 bf16', sti0)):
+        dw_case(f'stpls3d {label}', pick(
+            sttrec.calls['rulebook_conv_dw'],
+            lambda a, k, r=rows: a[2].shape == (27, r)
+            and a[0].shape[1] == 16 and a[1].shape[1] == 16,
+            f'stpls3d dW {label}')[0], torch.bfloat16, 'stpls3d_train')
+    # exact_ball_query's candidate gather: each entry's 4 + 26 x 4
+    # candidates' coordinates
+    gather_case(f'ball candidates (P x 108, 3) f32 (P='
+                f'{caps.grouping_points})', pick(
+                    brec.calls['row_gather'], lambda a, k: a[0].shape[1:]
+                    == (3,) and a[1].shape[0] == 108 * a[0].shape[0],
+                    'ball candidates')[0], 'ball')
+    # the KITTI train CLI's step at its yaml's caps (V0 = 524288): the
+    # input conv at Cin 1, level 0's conv, weight gradient, devoxelize and
+    # its backward
+    kv0 = kcli_caps.voxels[0]
+    conv_case(f'KITTI CLI input conv 1->32 bf16 (V0={kv0})', pick(
+        kcrec.calls['rulebook_conv'], lambda a, k: a[1].shape[1] == 1,
+        'KITTI CLI input conv')[0], torch.bfloat16, 'kitti_cli')
+    conv_case(f'KITTI CLI L0 subm 32->32 bf16 (V0={kv0})', pick(
+        kcrec.calls['rulebook_conv'], lambda a, k: a[2].shape == (27, kv0)
+        and a[1].shape[1:] == (32, 32), 'KITTI CLI L0 subm')[0],
+        torch.bfloat16, 'kitti_cli')
+    dw_case(f'KITTI CLI L0 subm 32->32 bf16 (V0={kv0})', pick(
+        kcrec.calls['rulebook_conv_dw'], lambda a, k: a[2].shape == (27, kv0)
+        and a[0].shape[1] == 32 and a[1].shape[1] == 32,
+        'KITTI CLI dW L0')[0], torch.bfloat16, 'kitti_cli')
+    gather_case(f'KITTI CLI devoxelize (V0, 32) bf16 (V0={kv0})', pick(
+        kcrec.calls['row_gather'], lambda a, k: a[0].dtype == torch.bfloat16
+        and a[0].shape == (kv0, 32), 'KITTI CLI devoxelize')[0], 'kitti_cli')
+    args, kw = pick(kcrec.calls['sorted_segment_sum'],
+                    lambda a, k: a[0].shape[1] == 32,
+                    'KITTI CLI devoxelize backward')
+    segsum_case(f'KITTI CLI devoxelize backward ({kcli_caps.points}, 32) '
+                f'bf16', args, kw, 'kitti_cli')
+    del rec, trec, prec, srec, crec, p3rec, strec, sttrec, brec, kcrec, out
+    del kcjoin
+    del conv_calls, keyed_calls, gather_calls, join_calls, dw_calls
+    del segsum_calls, rules_calls, train_join_calls, l0_subm, args, kw
 
     results = []
     for c in cases:
@@ -812,8 +1004,6 @@ def main() -> int:
     s3dis_counts = s3dis_phase(srunner, scfg, sdata, s3dis_join, lift,
                                reset_counts, read_counts, card, dev)
     del srunner, snet, sdata, s3dis_join
-    s3dis_dir.cleanup()
-    torch.cuda.empty_cache()
     phase_done('S3DIS serving path')
 
     # ---- phase 3d: the SemanticKITTI panoptic path ---------------------
@@ -821,8 +1011,30 @@ def main() -> int:
                                reset_counts, read_counts, card, dev)
     del krunner, knet, kdata, kitti_join
     kitti_dir.cleanup()
-    torch.cuda.empty_cache()
     phase_done('KITTI panoptic path')
+
+    # ---- phase 3e: the SoftGroup++ S3DIS serving path ------------------
+    # (phase 3c's two 1M-point rooms, the ++ fold-5 yaml: no x4_split)
+    p3_counts = plus_eval_phase('s3dis++', p3runner, p3cfg, p3join,
+                                reset_counts, read_counts, card)
+    del p3runner, p3join
+    s3dis_dir.cleanup()
+    phase_done('SoftGroup++ S3DIS serving path')
+
+    # ---- phase 3f: the SoftGroup++ STPLS3D serving path and training ---
+    st_counts = plus_eval_phase('stpls3d++', strunner, stcfg, stjoin,
+                                reset_counts, read_counts, card,
+                                min_level=2)
+    st_train_counts = stpls3d_train_phase(sttcfg, tile, lift, reset_counts,
+                                          read_counts, card, dev)
+    del strunner, stjoin, tile
+    st_dir.cleanup()
+    phase_done('SoftGroup++ STPLS3D serving path and training')
+
+    # ---- phase 3g: exact_ball_query grouping ---------------------------
+    ball_counts = ball_phase(net, cfg, caps, make_request, reset_counts,
+                             read_counts, card)
+    phase_done('exact_ball_query serving path')
 
     # ---- phase 4: the training path ------------------------------------
     train_counts = {}
@@ -893,17 +1105,24 @@ def main() -> int:
                 train_batches[1][0], generator=torch.Generator().manual_seed(
                     9)), 'one all-params train step', card)
         del state, named, before
-        torch.cuda.empty_cache()
-    del train_batches
+    del train_batches, batch, logs
     phase_done('training path')
 
     # ---- phase 4b: the train CLI ---------------------------------------
     cli_counts = train_cli_phase(cli_paths, cli_batch, reset_counts,
                                  read_counts, card, dev)
+    # stage 2's positive branch at the CLI's caps, card vs CPU
+    cli_positive_check(cli_paths[1], cli_batch, dev)
     del cli_batch
     cli_dir.cleanup()
-    torch.cuda.empty_cache()
     phase_done('train CLI')
+
+    # ---- phase 4c: the KITTI train CLI ---------------------------------
+    kcli_counts = kitti_cli_phase(kcli_path, kcli_batch, reset_counts,
+                                  read_counts, card, dev)
+    del kcli_batch
+    kcli_dir.cleanup()
+    phase_done('KITTI train CLI')
 
     # ---- phase 5: small inputs, card (f32) vs CPU (plain versions) ------
     small_caps = small_capacities()
@@ -927,6 +1146,29 @@ def main() -> int:
     if sem_err > 1e-3 or off_err > 1e-3 or not n_r or miou < 0.99:
         raise RuntimeError('card and CPU disagree on the small input')
     small_train_check(entry, sg, blocks, small_caps, scene, lift, dev)
+    # an odd instance_voxel_cfg.spatial_shape at inference
+    small_odd_shape_check(entry, sg, small_caps, scene, lift, reset_counts,
+                          read_counts, dev)
+    # pair keys: the ++ S3DIS model section on a 13-class scene (levels up
+    # to 3; its component-size thresholds cut to the scene's 20k points)
+    p3small = p3cfg.model.copy()
+    p3small.grouping_cfg.pyramid_thresholds = [2000, 8000]
+    p3small.grouping_cfg.npoint_thr *= 20000 / S3DIS_POINTS
+    data = collate_scenes([make_scene(
+        np.random.RandomState(7), n_points=20000, n_instances=12,
+        semantic_classes=13)], scale=50.0)
+    data['scan_ids'] = ['small13']
+    plus_small(p3small, data, lift, dev, 'plus-small pair-keys',
+               'SoftGroup++ S3DIS')
+    # pair-key training: the flagship train section on int64 cell keys,
+    # with STPLS3D's low-quality matches and class weights
+    ptcfg = entry.train_cfg()
+    ptcfg.grouping_cfg.pair_keys = True
+    ptcfg.train_cfg.match_low_quality = True
+    ptcfg.train_cfg.min_pos_thr = 0.1
+    ptcfg.semantic_weight = [1.0, 1.0] + [4.0] * 18
+    small_train_check(entry, sg, blocks, small_caps, scene, lift, dev,
+                      ptcfg, 'small-train pair-keys')
     phase_done('small card vs CPU')
 
     for r_ in results:
@@ -938,7 +1180,12 @@ def main() -> int:
                    'train_frozen': train_counts[FROZEN][key],
                    'train_all': train_counts[ALL][key],
                    'train_cli_backbone': cli_counts[0][key],
-                   'train_cli': cli_counts[1][key]}
+                   'train_cli': cli_counts[1][key],
+                   's3dis_plus': p3_counts[key],
+                   'stpls3d_plus': st_counts[key],
+                   'stpls3d_train': st_train_counts[key],
+                   'ball': ball_counts[key],
+                   'kitti_cli': kcli_counts[key]}
         r_['launches'] = by_path[r_.pop('path')]
         r_['launches_by_path'] = by_path
     log(f'[phase] total: {time.perf_counter() - t_start:.3f} s')
@@ -951,28 +1198,34 @@ def main() -> int:
 
 
 class HeadLevels:
-    """Keeps a reference to the level-0 semantic head's output of the
-    latest forward (no work inside the timed forward); ``last()`` then
-    gives the per-class active rows and pyramid levels that grouping took
-    from it."""
+    """Keeps a reference to the level-0 semantic head's output of each
+    forward (no work inside the timed forward); ``last()`` then gives the
+    per-class active rows and pyramid levels that grouping took from the
+    latest, ``all()`` those of every forward."""
 
     def __init__(self, net, gcfg):
-        self.net, self.gcfg, self.seen = net, gcfg, None
+        self.net, self.gcfg, self.seen = net, gcfg, []
 
     def __enter__(self):
         def keep(module, args, out):
-            self.seen = (out, args[1])
+            self.seen.append((out, args[1]))
         self.hook = self.net.semantic_linear.register_forward_hook(keep)
         return self
 
     def __exit__(self, *exc):
         self.hook.remove()
 
-    def last(self):
+    def _levels(self, seen):
         from softgroup_tpu_torch.model import softgroup as sg
-        counts = sg.class_active_counts(*self.seen, self.gcfg)
+        counts = sg.class_active_counts(*seen, self.gcfg)
         levels = sg.pyramid_levels(counts, self.gcfg)
         return counts.tolist(), [int(v) for v in levels.tolist()]
+
+    def last(self):
+        return self._levels(self.seen[-1])
+
+    def all(self):
+        return [self._levels(s) for s in self.seen]
 
 
 def plus_phase(runner, plus_data, lift, pcfg, plus_join, reset_counts,
@@ -982,8 +1235,6 @@ def plus_phase(runner, plus_data, lift, pcfg, plus_join, reset_counts,
     import numpy as np
     import torch
 
-    from softgroup_tpu_torch import entry
-    from softgroup_tpu_torch.evaluation.postprocess import to_numpy
     from softgroup_tpu_torch.time_kernels import k3_census
     reset_counts()
     rows = []
@@ -1060,10 +1311,24 @@ def plus_phase(runner, plus_data, lift, pcfg, plus_join, reset_counts,
 
     # a small scene through the runner: card (f32) vs CPU (plain versions),
     # levels 3 taken (thresholds cut to the scene's size)
-    small_caps = small_capacities()
     scfg = pcfg.copy()
     scfg.grouping_cfg.pyramid_thresholds = [2000, 8000]
-    data = plus_data(7, n_points=20000, room=False)
+    plus_small(scfg, plus_data(7, n_points=20000, room=False), lift, dev,
+               'plus-small', 'SoftGroup++')
+    return plus_counts
+
+
+def plus_small(scfg, data, lift, dev, tag: str, what: str) -> None:
+    """A small scan through the SoftGroup++ runner of the model section
+    ``scfg``, on the card (f32) and on the CPU (plain versions): semantic
+    and offset heads within 1e-3, proposals (voxel sets) and instances
+    within a mean best IoU of 0.99, the same pyramid levels, level 3
+    among them."""
+    import numpy as np
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.evaluation.postprocess import to_numpy
+    small_caps = small_capacities()
     outs, rets, lvls = {}, {}, {}
     for d in ('cpu', dev):
         small = entry.build_runner(
@@ -1086,18 +1351,20 @@ def plus_phase(runner, plus_data, lift, pcfg, plus_join, reset_counts,
     p_iou, p_a, p_r = best_iou(a, r)
     i_iou, i_a, i_r = instance_iou(rets[dev]['pred_instances'],
                                    rets['cpu']['pred_instances'])
-    log(f'[plus-small] card vs CPU, runner on a 20k-point scene (f32, '
-        f'levels by class {lvls[dev]} on the card, {lvls["cpu"]} on the '
-        f'CPU): semantic max err {sem_err:.3g} (tol 1e-3), offset max err '
-        f'{off_err:.3g} (tol 1e-3), proposals (voxel sets) {p_a} vs {p_r}, '
-        f'mean best IoU {p_iou:.6f} (tol 0.99), instances {i_a} vs {i_r}, '
-        f'mean best IoU with one of its class {i_iou:.6f} (tol 0.99)')
+    keys = ('int64' if scfg.grouping_cfg.get('pair_keys', True)
+            else 'int32')
+    log(f'[{tag}] card vs CPU, {what} runner on a {n}-point scene (f32, '
+        f'{keys} cell keys, levels by class {lvls[dev]} on the card, '
+        f'{lvls["cpu"]} on the CPU): semantic max err {sem_err:.3g} (tol '
+        f'1e-3), offset max err {off_err:.3g} (tol 1e-3), proposals (voxel '
+        f'sets) {p_a} vs {p_r}, mean best IoU {p_iou:.6f} (tol 0.99), '
+        f'instances {i_a} vs {i_r}, mean best IoU with one of its class '
+        f'{i_iou:.6f} (tol 0.99)')
     if (sem_err > 1e-3 or off_err > 1e-3 or not p_r or p_iou < 0.99
             or not i_r or i_iou < 0.99 or 3 not in lvls['cpu']
             or lvls[dev] != lvls['cpu']):
-        raise RuntimeError('card and CPU disagree on the small SoftGroup++ '
-                           'request')
-    return plus_counts
+        raise RuntimeError(f'card and CPU disagree on the small {what} '
+                           f'request')
 
 
 def s3dis_rooms(root: str):
@@ -1642,34 +1909,28 @@ def scannet_rooms(root: str) -> tuple:
     return paths[0], paths[1], pretrain
 
 
-def cli_record(cfg_path: str, sites, dev):
-    """One batch of the yaml's training loader (epoch 1, pinned) and one
-    step of its train state (``train_cli.build_train_state``) on it with
-    the kernel wrappers at ``sites`` recorded; returns (the batch on the
-    host, the recorder, the capacities)."""
+def cli_record(cfg_path: str, sites, dev, lift=None):
+    """One training batch of the yaml built as a loader worker builds one
+    (``host_batch``, then pinned) and one step of its train state
+    (``train_cli.build_train_state``, the net through ``lift`` where given)
+    on it with the kernel wrappers at ``sites`` recorded; returns (the
+    batch on the host, the recorder, the capacities, the step's logs)."""
     import torch
 
     from softgroup_tpu_torch.time_kernels import Recorder
     from softgroup_tpu_torch.tools_impl import train_cli
     from softgroup_tpu_torch.util.config import load_config
     cfg = load_config(cfg_path)
-    caps = train_cli.caps_from_cfg(cfg)
-    loader = train_cli.build_train_loader(cfg, caps, pin_memory=True)
-    loader.set_epoch(1)
-    # the whole epoch (workers cut off mid-batch end abnormally); the first
-    batch = None
-    for _, b in loader:
-        batch = b if batch is None else batch
+    batch, caps = host_batch(cfg_path)
+    batch = batch.pin_memory()
     net = train_cli.build_net(cfg, dev)
-    state, _ = train_cli.build_train_state(net, cfg, caps, len(loader))
+    state, _ = train_cli.build_train_state(lift(net) if lift else net, cfg,
+                                           caps, 1)
     with Recorder(sites) as rec:
         logs = state.step(batch.to(dev),
                           generator=torch.Generator().manual_seed(0))
         torch.cuda.synchronize()
-    log(f'[warmup] train CLI stage-1 step on a batch of its loader: '
-        f'level-0 voxels {int(batch.pyramid.levels[0].vox_valid.sum())} '
-        f'(cap {caps.voxels[0]}), loss={float(logs["loss"]):.6f}')
-    return batch, rec, caps
+    return batch, rec, caps, {k: float(v) for k, v in logs.items()}
 
 
 def _to_cpu(x):
@@ -1766,6 +2027,7 @@ def run_cli(label: str, argv: list, reset_counts, read_counts, card):
     cfg = load_config(argv[0])
     stats = {}
     torch.cuda.reset_peak_memory_stats()
+    held_mb = torch.cuda.memory_allocated() / 2 ** 20
     with CliHooks(read_counts) as hooks:
         reset_counts()
         t = time.perf_counter()
@@ -1820,7 +2082,8 @@ def run_cli(label: str, argv: list, reset_counts, read_counts, card):
         f'{statistics.median(steps):.3f} min={steps[0]:.3f} '
         f'max={steps[-1]:.3f}; data wait share of the steps\' wall '
         f'{sum(data) / sum(iters):.4f}; peak memory '
-        f'{stats["steps"][-1]["mem_mb"]} MB'
+        f'{stats["steps"][-1]["mem_mb"]} MB, of which {held_mb:.0f} MB held '
+        f'before main() (earlier phases\' nets and batches)'
         + (f'; checkpoint load {stats["load_ms"]:.3f} ms'
            if 'load_ms' in stats else '') + f' [{card}]')
     # past each epoch's first step (which waits for the workers' start)
@@ -1898,12 +2161,12 @@ def train_cli_phase(paths, batch, reset_counts, read_counts, card,
 
     # stage 1: the backbone, all parameters, semantic only
     stats1, train1, val1, _ = run_cli(
-        'stage 1', [paths[0], '--epochs', '2'], reset_counts, read_counts,
+        'stage 1', [paths[0], '--epochs', '1'], reset_counts, read_counts,
         card)
     need('the train CLI, stage 1', train1, (
         'rulebook_conv', 'row_gather', 'rulebook_conv_dw',
         'sorted_segment_sum'))
-    check_kept(cfg1, 2)
+    check_kept(cfg1, 1)
 
     # its last weights as a reference .pth: the running statistics set from
     # one train-mode pass over a CLI batch (a few dozen updates at momentum
@@ -1911,7 +2174,7 @@ def train_cli_phase(paths, batch, reset_counts, read_counts, card,
     # backbone on them), the semantic head's final bias lifted on two thing
     # classes (else grouping has nothing to group)
     net = train_cli.build_net(cfg1, dev)
-    load_weights(net, os.path.join(ckpt_dir(cfg1), 'epoch_2'))
+    load_weights(net, os.path.join(ckpt_dir(cfg1), 'epoch_1'))
     norms = [m for m in net.modules() if isinstance(m, MaskedBatchNorm)]
     for m in norms:
         m.momentum = 1.0
@@ -1937,12 +2200,13 @@ def train_cli_phase(paths, batch, reset_counts, read_counts, card,
                for s in stats2['steps']):
         raise RuntimeError('stage 2: no proposal on any step')
     # positives need offsets that part the rooms' touching boxes, which a
-    # few dozen updates do not learn; phase 5's small train step (separated
-    # instances) and the CPU tests hold the positive path
+    # few dozen updates do not learn; ``cli_positive_check`` (at these
+    # caps), phase 5's small train step (separated instances) and the CPU
+    # tests hold the positive path
     log(f'[train-cli] stage 2 positive proposals a step: '
         f'{[int(s["logs"]["num_pos"]) for s in stats2["steps"]]}; offset MAE '
         f'of the same backbone weights in eval mode: with stage 1\'s '
-        f'running statistics (stage 1, epoch 2) '
+        f'running statistics (stage 1, epoch 1) '
         f'{stats1["epochs"][-1]["val"]["Offset_MAE"]:.6g}, with the set ones '
         f'(stage 2, epoch 1) {stats2["epochs"][0]["val"]["Offset_MAE"]:.6g}')
     fixed = tuple(cfg2.model.fixed_modules)
@@ -1997,7 +2261,7 @@ def train_cli_phase(paths, batch, reset_counts, read_counts, card,
 
     # one step of each stage under the profiler, on a batch of the loader
     # (its copy to the card included), from the stage's last checkpoint
-    for label, cfg, path, epoch in (('stage 1', cfg1, paths[0], 2),
+    for label, cfg, path, epoch in (('stage 1', cfg1, paths[0], 1),
                                     ('stage 2', cfg2, paths[1], 3)):
         caps = train_cli.caps_from_cfg(cfg)
         net = train_cli.build_net(cfg, dev)
@@ -2012,6 +2276,555 @@ def train_cli_phase(paths, batch, reset_counts, read_counts, card,
         del net, state
     return (dict((k, train1[k] + val1[k]) for k in train1),
             dict((k, train2[k] + val2[k]) for k in train2))
+
+
+def yaml_cfg(rel: str, root: str | None = None):
+    """A whole config of ``configs/`` (``rel``: its path there), its test
+    split's ``data_root`` set to ``root`` where given."""
+    import os
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.util.config import load_config
+    cfg = load_config(os.path.join(entry.CONFIGS, rel))
+    if root is not None:
+        cfg.data.test.data_root = root
+    return cfg
+
+
+def forward_recorded(runner, data: dict, sites) -> dict:
+    """The host batch and the device forward of one scan through
+    ``runner`` (no host postprocess) with the kernel wrappers at ``sites``
+    recorded; returns its caps, proposals and the recorder.  Fails where
+    the forward grouped nothing."""
+    import torch
+
+    from softgroup_tpu_torch.time_kernels import Recorder
+    batch, caps = runner.build_batch(data)
+    with Recorder(sites) as rec:
+        out = runner.forward(batch, caps)
+        torch.cuda.synchronize()
+    n_prop = int(out['n_proposals'])
+    if n_prop <= 0:
+        raise RuntimeError('a recorded forward produced no proposals')
+    return dict(caps=caps, n_proposals=n_prop, recorder=rec)
+
+
+def stpls3d_tile(seed: int, n_points: int = STPLS3D_POINTS,
+                 extent: float = STPLS3D_EXTENT):
+    """One synthetic STPLS3D aerial tile of ``extent`` m a side and ~
+    ``n_points`` points, spread over the surfaces by area: the ground
+    (class 0, no instance) but under the buildings, 20 buildings (class 1:
+    roofs and walls, 10-18 m footprints on an 8 x 8 grid of slots, 6-20 m
+    high), 150 tree crowns (class 4, high vegetation: upper hemispheres of
+    2-3.5 m radius at 4-10 m) and 60 vehicles (class 5 cars, class 6
+    trucks), each thing its own instance.  Returns (xyz f32 (n, 3), rgb f32
+    in [-1, 1], semantic int64, instance int64, -100 where none), the
+    layout of a prepared ``_inst_nostuff.pth`` scan."""
+    import numpy as np
+
+    from softgroup_tpu_torch.data.synthetic import _sample_box_shell
+    rng = np.random.RandomState(seed)
+    boxes = [((s % 8 + 0.5) * extent / 8, (s // 8 + 0.5) * extent / 8,
+              rng.uniform(10, 18), rng.uniform(10, 18), rng.uniform(6, 20))
+             for s in rng.permutation(64)[:20]]
+    trees = [(rng.uniform(0, extent), rng.uniform(0, extent),
+              rng.uniform(2, 3.5), rng.uniform(4, 10)) for _ in range(150)]
+    cars = [(rng.uniform(0, extent), rng.uniform(0, extent), rng.rand() < 0.5)
+            for _ in range(60)]
+    car_area = 60 * (4.5 * 1.8 + 2 * (4.5 + 1.8) * 1.5)
+    area = (extent ** 2 + car_area
+            + sum(sx * sy + 2 * (sx + sy) * sz for *_, sx, sy, sz in boxes)
+            + sum(2 * np.pi * r * r for *_, r, _ in trees))
+    dens = n_points / area
+    parts = []
+    things = iter(range(len(boxes) + len(trees) + len(cars)))
+
+    def add(xyz, sem):
+        inst = -100 if sem == 0 else next(things)
+        parts.append((np.asarray(xyz, np.float32),
+                      np.full(len(xyz), sem, np.int64),
+                      np.full(len(xyz), inst, np.int64)))
+    n = int(extent ** 2 * dens)
+    g = np.c_[rng.rand(n, 2) * extent, rng.randn(n) * 0.03]
+    under = np.zeros(n, bool)
+    for cx, cy, sx, sy, _ in boxes:
+        under |= (np.abs(g[:, 0] - cx) < sx / 2) & (np.abs(g[:, 1] - cy)
+                                                    < sy / 2)
+    add(g[~under], 0)
+    for cx, cy, sx, sy, sz in boxes:
+        add(_sample_box_shell(rng, np.array([cx, cy, sz / 2], np.float32),
+                              np.array([sx, sy, sz], np.float32),
+                              int((sx * sy + 2 * (sx + sy) * sz) * dens)), 1)
+    for x, y, r, h in trees:
+        d = rng.randn(int(2 * np.pi * r * r * dens), 3)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        d[:, 2] = np.abs(d[:, 2])
+        add(np.array([x, y, h]) + d * r, 4)
+    for x, y, big in cars:
+        size = np.array([8.0, 2.5, 3.2] if big else [4.5, 1.8, 1.5],
+                        np.float32)
+        add(_sample_box_shell(
+            rng, np.array([x, y, size[2] / 2], np.float32), size,
+            int((size[0] * size[1] + 2 * (size[0] + size[1]) * size[2])
+                * dens)), 6 if big else 5)
+    xyz = np.concatenate([p[0] for p in parts])
+    rgb = (rng.rand(len(xyz), 3) * 2 - 1).astype(np.float32)
+    return (xyz, rgb, np.concatenate([p[1] for p in parts]),
+            np.concatenate([p[2] for p in parts]))
+
+
+def stpls3d_split(root: str):
+    """The tile of seed ``STPLS3D_SEED`` saved as the ++ STPLS3D yaml's test
+    split (``val_250m/``, labels float64) under ``root``; returns (that
+    yaml with its test split's data_root set to ``root``, the tile)."""
+    import os
+
+    import numpy as np
+    import torch
+    tile = stpls3d_tile(STPLS3D_SEED)
+    xyz, rgb, sem, inst = tile
+    os.makedirs(os.path.join(root, 'val_250m'))
+    torch.save((xyz, rgb, sem.astype(np.float64), inst.astype(np.float64)),
+               os.path.join(root, 'val_250m',
+                            f'tile{STPLS3D_SEED}_inst_nostuff.pth'))
+    return yaml_cfg(PLUS_STPLS3D_YAML, root), tile
+
+
+def plus_eval_phase(label: str, runner, cfg, join_args, reset_counts,
+                    read_counts, card, min_level: int = 1) -> dict:
+    """Phases 3e and 3f: ``run_eval`` of a SoftGroup++ yaml (lvl_fusion,
+    scene-pyramid grouping on int64 cell keys) over its test split, the
+    counters set to 0 just before and read just after; each scan's caps,
+    level-0 voxels, per-class pyramid levels, grouping cells filled and
+    dropped, stage times and counts, the metrics and ``run_eval``'s wall;
+    K3's int64 census at the first scan's call; one forward under the
+    profiler.  Fails where a scan's classes stay under ``min_level``.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.time_kernels import k3_census
+    from softgroup_tpu_torch.tools_impl.test_runner import run_eval
+    scans = []
+    gcfg = cfg.model.grouping_cfg
+    with Hooks(scans) as hooks, HeadLevels(runner.net, gcfg) as lv:
+        reset_counts()
+        t = time.perf_counter()
+        metrics = run_eval(runner.net, cfg, entry.caps_from_cfg(cfg),
+                           cfg.model.num_blocks, scene_stats=scans)
+        eval_s = time.perf_counter() - t
+        counts = read_counts()
+    levels = lv.all()
+    if not scans or len(levels) != len(scans):
+        raise RuntimeError(f'{label}: {len(scans)} scans, {len(levels)} '
+                           f'forwards')
+    ignore = set(gcfg.ignore_classes)
+    for i, (st, (active, lvl)) in enumerate(zip(scans, levels)):
+        caps = st['caps']
+        cells = ', '.join(f'valid={min(c, m)} dropped={max(c - m, 0)} '
+                          f'(cap {m})' for s_, m, c in hooks.cells
+                          if s_ == i)
+        live = {c: (active[c], lvl[c]) for c in range(len(lvl))
+                if c not in ignore and active[c] >= cfg.model.test_cfg
+                .min_npoint}
+        log(f'[{label}] scan {i}: points={st["n_points"]} caps: points={caps.points} voxels='
+            f'{list(caps.voxels)} grouping_points={caps.grouping_points} '
+            f'proposal_entries={caps.proposal_entries} grouping_cells='
+            f'{caps.grouping_cells}; level-0 voxels={st["n_voxels"]}; '
+            f'pyramid levels by class {lvl}; classes grouped (active voxels, '
+            f'level) {live}; grouping cells {cells}; host_batch_ms='
+            f'{st["host_batch_ms"]:.3f} (native) test_forward_plus_ms='
+            f'{st["forward_ms"]:.3f} get_instances_ms='
+            f'{st["postprocess_ms"]:.3f} n_proposals={st["n_proposals"]} '
+            f'instances={st["n_instances"]} [{card}]')
+        if st['n_proposals'] <= 0 or st['n_instances'] <= 0:
+            raise RuntimeError(f'{label} scan {i}: no proposals or '
+                               f'instances')
+        if not live or max(v[1] for v in live.values()) < min_level:
+            raise RuntimeError(f'{label} scan {i}: no class grouped at '
+                               f'pyramid level {min_level} or above')
+    stage_s = sum(st['host_batch_ms'] + st['forward_ms']
+                  + st['postprocess_ms'] for st in scans) / 1e3
+    log(f'[{label}] metrics over {len(scans)} scans (random weights: these '
+        f'show the path ran, not its quality): '
+        + ' '.join(f'{k}={v:.6g}' for k, v in metrics.items())
+        + f'; run_eval {eval_s:.3f} s, of which host batch + forward + '
+        f'get_instances {stage_s:.3f} s (the rest: loading the scans and '
+        f'the evaluators) [{card}]')
+    want = {'AP', 'AP_50', 'AP_25', 'mIoU', 'Acc', 'Offset_MAE'}
+    if set(metrics) != want or not all(np.isfinite(v)
+                                       for v in metrics.values()):
+        raise RuntimeError(f'{label} metrics missing or not finite: '
+                           f'{metrics}')
+    log(f'[main-path] {label}: launches over {len(scans)} scans: '
+        f'{json.dumps(counts)}')
+    missing = [k for k in ('rulebook_conv', 'row_gather',
+                           'cell_neighbor_join', 'keyed_conv',
+                           'cell_neighbor_join_int64') if counts[k] <= 0]
+    if missing:
+        raise RuntimeError(f'kernels never launched on {label}: {missing}')
+    if counts['cell_neighbor_join_int64'] != counts['cell_neighbor_join']:
+        raise RuntimeError(f'{label} joined int32 cell keys')
+    k3_census([(f'{label} request int64 keys', join_args,
+                counts['cell_neighbor_join'])], 'chip_smoke', card, [None])
+    batch, caps = runner.build_batch(first_scan(cfg))
+    profile(lambda: runner.forward(batch, caps),
+            f'one {label} request (test_forward_plus, int64 cell keys)', card)
+    del batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def stpls3d_train_phase(cfg, tile, lift, reset_counts, read_counts, card,
+                        dev) -> dict:
+    """Phase 3f's training part: ``TRAIN_STEPS`` steps of
+    ``softgroup_stpls3d.yaml``'s train state (``train_cli.
+    build_train_state``: its Adam, schedule; 16 wide, pair keys,
+    ``match_low_quality``, ``semantic_weight``) on a batch of the whole tile
+    at the yaml's capacities, counters set to 0 just before and read just
+    after, after one warm-up step; returns the launch counts."""
+    import math
+
+    import torch
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.tools_impl import train_cli
+    caps = entry.caps_from_cfg(cfg)
+    net = lift(train_cli.build_net(cfg, dev))
+    state, _ = train_cli.build_train_state(net, cfg, caps, TRAIN_STEPS + 1)
+    batch = entry.build_train_batch([tile], cfg.model, caps,
+                                    scale=cfg.data.train.voxel_cfg.scale,
+                                    device=dev)
+    gen = torch.Generator().manual_seed(0)
+    state.step(batch, generator=gen)
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(TRAIN_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        logs = {k: float(v) for k, v in state.step(
+            batch, generator=gen).items()}
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t) * 1e3
+        log(f'[stpls3d-train] step {i + 1}: step_ms={step_ms:.3f} level-0 '
+            f'voxels={int(batch.pyramid.levels[0].vox_valid.sum())} (cap '
+            f'{caps.voxels[0]}) '
+            + ' '.join(f'{k}={v:.6g}' for k, v in logs.items())
+            + f' peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.3f}'
+            f' [{card}]')
+        if not all(math.isfinite(v) for v in logs.values()):
+            raise RuntimeError(f'STPLS3D train step: non-finite {logs}')
+        if logs['num_pos'] + logs['num_neg'] <= 0:
+            raise RuntimeError('STPLS3D train step: no proposals')
+    counts = read_counts()
+    log(f'[main-path] STPLS3D training: launches over {TRAIN_STEPS} steps: '
+        f'{json.dumps(counts)}')
+    missing = [k for k in ('rulebook_conv', 'row_gather',
+                           'cell_neighbor_join', 'cell_neighbor_join_int64',
+                           'rulebook_conv_dw', 'sorted_segment_sum',
+                           'sorted_key_rules_join') if counts[k] <= 0]
+    if missing:
+        raise RuntimeError(f'kernels never launched on the STPLS3D train '
+                           f'step: {missing}')
+    return counts
+
+
+def ball_phase(net, cfg, caps, make_request, reset_counts, read_counts,
+               card) -> dict:
+    """Phase 3g: the flagship request with ``exact_ball_query`` on rooms of
+    seeds 100-102, counters set to 0 just before and read just after; each
+    request's grouping run again on the CPU from the card's scores and
+    offsets (the same partition and labels, exactly), and timed on the
+    card beside ``cell_cluster_csr``'s on the same inputs.  Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.evaluation.postprocess import (get_instances,
+                                                            to_numpy)
+    from softgroup_tpu_torch.model import softgroup as sg
+    bcfg = cfg.copy()
+    bcfg.grouping_cfg.exact_ball_query = True
+    kept = []
+    orig = sg.forward_grouping
+
+    def grouping(*a):
+        out = orig(*a)
+        kept.append((a, out))
+        return out
+    sg.forward_grouping = grouping
+    try:
+        reset_counts()
+        for i in range(N_REQUESTS):
+            seed = 100 + i
+            batch, host_ms = make_request(seed)
+            t = time.perf_counter()
+            out = entry.infer(net, batch, bcfg, caps)
+            torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            outs = to_numpy(out)
+            n = int(batch.pyramid.point_valid.sum())
+            inst = get_instances(f'room{seed}', outs, n, bcfg)
+            post_ms = (time.perf_counter() - t) * 1e3
+            if not all(np.isfinite(outs[k]).all() for k in (
+                    'cls_scores', 'iou_scores', 'mask_scores')):
+                raise RuntimeError(f'ball request {seed}: non-finite heads')
+            if int(outs['n_proposals']) <= 0:
+                raise RuntimeError(f'ball request {seed}: no proposals')
+            log(f'[ball] room seed={seed} points={n} host_batch_ms='
+                f'{host_ms:.3f} test_forward_ms={fwd_ms:.3f} '
+                f'get_instances_ms={post_ms:.3f} n_proposals='
+                f'{int(outs["n_proposals"])} instances={len(inst)} [{card}]')
+            del batch, out
+        counts = read_counts()
+    finally:
+        sg.forward_grouping = orig
+    log(f'[main-path] exact_ball_query serving: launches over {N_REQUESTS} '
+        f'requests: {json.dumps(counts)}')
+    missing = [k for k in ('rulebook_conv', 'row_gather', 'keyed_conv')
+               if counts[k] <= 0]
+    if missing or counts['cell_neighbor_join']:
+        raise RuntimeError(f'exact_ball_query path: kernels never launched '
+                           f'{missing}, cell joins '
+                           f'{counts["cell_neighbor_join"]} (want 0)')
+
+    def timed(c, args):
+        ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            orig(*args[:5], c, args[6])
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(ms)
+    for i, (args, out) in enumerate(kept):
+        cpu = orig(*[a.cpu() if torch.is_tensor(a) else a
+                     for a in args[:5]], bcfg, args[6])
+        equal = all(torch.equal(getattr(out, f).cpu(), getattr(cpu, f))
+                    for f in out._fields)
+        props = int(out.n_proposals)
+        entries = int(out.entry_valid.sum())
+        log(f'[ball] room seed={100 + i}: {props} proposals, {entries} '
+            f'entries; card partition and labels equal to the CPU\'s: '
+            f'{equal}; grouping on the card: exact_ball_query '
+            f'{timed(bcfg, args):.3f} ms, cell_cluster_csr '
+            f'{timed(cfg, args):.3f} ms (median of 3, synchronised) '
+            f'[{card}]')
+        if not equal:
+            raise RuntimeError(f'ball request {100 + i}: card and CPU '
+                               f'partitions differ')
+    return counts
+
+
+def kitti_train_root(root: str) -> str:
+    """SemanticKITTI's train split as one ray-cast sweep in each of its ten
+    sequences (00-07, 09, 10; seeds ``KITTI_TRAIN_SEED0`` on) and its
+    validation sequence 08 (phase 3d's sweeps, seeds 400-401) under
+    ``root``, and a copy of the KITTI yaml with only ``data_root``,
+    ``work_dir``, ``pretrain`` (the seeded net's weights, its semantic head
+    lifted as phase 3d's, as a reference ``.pth``) and the train split's
+    ``repeat`` (4: ten steps of four an epoch) changed; returns the copy's
+    path."""
+    import os
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from softgroup_tpu_torch.tools_impl import train_cli
+    from softgroup_tpu_torch.util.checkpoint import reference_state_dict
+    cfg = kitti_scans(root)
+    for i, seq in enumerate(KITTI_TRAIN_SEQS):
+        base = os.path.join(root, 'sequences', f'{seq:02d}')
+        os.makedirs(os.path.join(base, 'velodyne'))
+        os.makedirs(os.path.join(base, 'labels'))
+        xyz, rem, raw = kitti_sweep(KITTI_TRAIN_SEED0 + i)
+        np.concatenate([xyz, rem], 1).tofile(
+            os.path.join(base, 'velodyne', '000000.bin'))
+        raw.tofile(os.path.join(base, 'labels', '000000.label'))
+    cfg.data.train.data_root = root
+    cfg.data.train.repeat = KITTI_TRAIN_REPEAT
+    cfg.work_dir = os.path.join(root, 'work')
+    cfg.pretrain = os.path.join(root, 'lifted.pth')
+    net = kitti_lift(train_cli.build_net(cfg, 'cpu'))
+    torch.save({'net': reference_state_dict(net.state_dict())}, cfg.pretrain)
+    path = os.path.join(root, 'softgroup_kitti.yaml')
+    with open(path, 'w') as f:
+        yaml.safe_dump(cfg.to_dict(), f)
+    return path
+
+
+def host_batch(cfg_path: str):
+    """The first training batch of a yaml, built in this process as a
+    loader worker builds it (load, augment, collate, padded batch + host
+    pyramid; epoch 1's sampler order); returns (the SceneBatch on the host,
+    the capacities)."""
+    from softgroup_tpu_torch.data import EpochSampler, build_dataset
+    from softgroup_tpu_torch.tools_impl import train_cli
+    from softgroup_tpu_torch.util.config import load_config
+    cfg = load_config(cfg_path)
+    caps = train_cli.caps_from_cfg(cfg)
+    ds = build_dataset(cfg.data.train)
+    idx = EpochSampler(len(ds)).indices(1)[:cfg.dataloader.train.batch_size]
+    post = train_cli.make_post(caps, cfg.tpu.num_levels,
+                               cfg.model.ignore_label,
+                               cfg.model.get('with_coords', True))
+    return post(ds.collate_fn([ds[i] for i in idx]))[1], caps
+
+
+def kitti_cli_phase(path: str, batch, reset_counts, read_counts, card,
+                    dev) -> dict:
+    """Phase 4c: ``train_cli.main`` on the KITTI yaml (all parameters, the
+    instance branch, clip 35, batch 4, 4 workers) for one epoch with its
+    validation, the counters set to 0 just before and read just after
+    (validation's launches apart); per step the pre-clip gradient norm and
+    whether the clip bound, ``num_pos`` and the losses (finite); then one
+    step under the profiler.  Returns the launch counts (training and
+    validation)."""
+    import torch
+
+    from softgroup_tpu_torch.tools_impl import train_cli
+    from softgroup_tpu_torch.util.config import load_config
+    from softgroup_tpu_torch.util.checkpoint import load_weights
+    cfg = load_config(path)
+    stats, train, val, hooks = run_cli('KITTI', [path, '--epochs', '1'],
+                                       reset_counts, read_counts, card)
+    clip = cfg.clip_grad_norm
+    for s in stats['steps']:
+        log(f'[kitti-cli] step {s["step"]}: gradient norm before the clip '
+            f'{s["grad_norm"]:.6g} (clip {clip}: '
+            f'{"bound" if s["grad_norm"] > clip else "not bound"}), '
+            f'num_pos={int(s["logs"]["num_pos"])} '
+            f'num_neg={int(s["logs"]["num_neg"])}')
+    bound = sum(s['grad_norm'] > clip for s in stats['steps'])
+    log(f'[kitti-cli] the clip at {clip} bound on {bound} of '
+        f'{len(stats["steps"])} steps; positive proposals a step: '
+        f'{[int(s["logs"]["num_pos"]) for s in stats["steps"]]}')
+    if len(stats['steps']) != KITTI_TRAIN_STEPS:
+        raise RuntimeError(f'KITTI CLI ran {len(stats["steps"])} steps, not '
+                           f'{KITTI_TRAIN_STEPS}')
+    if not all(s['logs']['num_pos'] + s['logs']['num_neg'] > 0
+               for s in stats['steps']):
+        raise RuntimeError('KITTI CLI: a step without proposals')
+    need = ('rulebook_conv', 'row_gather', 'cell_neighbor_join',
+            'cell_neighbor_join_int64', 'rulebook_conv_dw',
+            'sorted_segment_sum', 'sorted_key_rules_join')
+    missing = [k for k in need if train[k] <= 0] + [
+        f'validation {k}' for k in ('keyed_conv', 'cell_neighbor_join_int64')
+        if val[k] <= 0]
+    if missing:
+        raise RuntimeError(f'kernels never launched on the KITTI CLI: '
+                           f'{missing}')
+    (epoch,) = stats['epochs']
+    if sorted(epoch['val'] or ()) != ['PQ']:
+        raise RuntimeError(f'KITTI CLI validation: {epoch["val"]}')
+    caps = train_cli.caps_from_cfg(cfg)
+    net = train_cli.build_net(cfg, dev)
+    load_weights(net, f'{cfg.work_dir}/ckpt/epoch_1')
+    state, _ = train_cli.build_train_state(net, cfg, caps,
+                                           stats['steps_per_epoch'])
+    gen = torch.Generator().manual_seed(1)
+    state.step(batch.to(dev, non_blocking=True), generator=gen)
+    profile(lambda: state.step(batch.to(dev, non_blocking=True),
+                               generator=gen),
+            'one train CLI step, KITTI (softgroup_kitti.yaml)', card)
+    del net, state
+    return dict((k, train[k] + val[k]) for k in train)
+
+
+def cli_positive_check(cfg_path: str, batch, dev) -> None:
+    """Stage 2's refinement at the train CLI's capacities on its positive
+    branch: the CLI batch's instances as the proposals (each one a
+    proposal whose IoU with its instance is 1), seeded point features,
+    the yaml's (r1, r2) draws fixed; ``clusters_voxelization`` ->
+    ``instance_head`` -> ``instance_loss`` -> backward on the CPU (plain
+    versions) and on the card (f32, each ReLU put on the CPU's side of 0:
+    ``AlignedReLU``).  Holds the losses within 1e-4 relative, ``num_pos``
+    equal and > 0, and each gradient leaf (and the features' gradient)
+    within 1e-3 of its CPU max (f32 sums over up to 131072 voxel rows in
+    another order, through the tiny U-Net's ten convs and batch norms)."""
+    import torch
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.model import softgroup as sg
+    from softgroup_tpu_torch.tools_impl import train_cli
+    from softgroup_tpu_torch.util.config import load_config
+    cfg = load_config(cfg_path)
+    caps = train_cli.caps_from_cfg(cfg)
+    p_max, s_cap = caps.proposals, caps.proposal_entries
+    inst = batch.instance_labels
+    valid = batch.pyramid.point_valid & (inst >= 0)
+    pts = torch.nonzero(valid).reshape(-1)
+    ids, seg = torch.unique(inst[pts], return_inverse=True)
+    keep = seg < p_max
+    pts, seg = pts[keep], seg[keep]
+    order = torch.argsort(seg, stable=True)[:s_cap]
+    pts, seg = pts[order].to(torch.int32), seg[order].to(torch.int32)
+    n_prop = min(len(ids), p_max)
+    pad = s_cap - len(pts)
+    props = sg.Proposals(
+        torch.cat([pts, pts.new_zeros(pad)]),
+        torch.cat([seg, seg.new_full((pad,), p_max)]),
+        torch.arange(s_cap) < len(pts), torch.tensor(n_prop,
+                                                     dtype=torch.int32),
+        torch.arange(p_max) < n_prop)
+    g = torch.Generator().manual_seed(3)
+    feats = torch.randn((inst.shape[0], cfg.model.channels), generator=g)
+    rand = torch.tensor([[0.25, 0.5, 0.75], [0.6, 0.3, 0.9]])
+    res = {}
+    for d in ('cpu', dev):
+        net = entry.build_net(cfg.model, seed=0, device=d, bf16=False)
+        net.train()
+        b = batch.to(d)
+        f = feats.to(d).detach().requires_grad_(True)
+        pr = sg.Proposals(*(t.to(d) for t in props))
+        relu = AlignedReLU(None if d == 'cpu' else res['cpu']['relu'])
+        with relu:
+            vox_feats, levels, p2v = sg.clusters_voxelization(
+                pr, f, b.coords_float,
+                float(cfg.model.instance_voxel_cfg.scale),
+                int(cfg.model.instance_voxel_cfg.spatial_shape), caps,
+                rand=rand.to(d))
+            cls, iou, mask = net.instance_head(vox_feats, levels, p2v,
+                                               p_max)
+            losses = sg.instance_loss(
+                cls, mask, iou, pr, b.instance_labels, b.instance_pointnum,
+                b.instance_cls, b.instance_valid, cfg.model)
+            total, logs = sg.parse_losses(losses)
+            total.backward()
+        res[d] = dict(
+            logs={k: float(v.detach()) for k, v in logs.items()},
+            grads=dict({k: p.grad.cpu().double() for k, p in
+                        net.named_parameters() if p.grad is not None},
+                       feats=f.grad.cpu().double()),
+            relu=relu.seen, flips=(relu.flips, relu.worst))
+        del net, b, f, pr, vox_feats, levels, cls, iou, mask, total
+    c, a = res['cpu'], res[dev]
+    loss_err = max(abs(a['logs'][k] - v) / max(abs(v), 1e-12)
+                   for k, v in c['logs'].items())
+    worst = max((float((a['grads'][k] - v).abs().max())
+                 / max(float(v.abs().max()), 1e-30), k)
+                for k, v in c['grads'].items())
+    flips, kink = a['flips']
+    log(f'[cli-positive] stage 2\'s refinement at the train CLI\'s caps '
+        f'(proposal_entries {s_cap}, inst_voxels {list(caps.inst_voxels)}) '
+        f'on the batch\'s {n_prop} instances as proposals ({len(pts)} '
+        f'entries), f32, card vs CPU: num_pos {a["logs"]["num_pos"]:.0f} vs '
+        f'{c["logs"]["num_pos"]:.0f}, mask_loss '
+        f'{c["logs"]["mask_loss"]:.6g}, max rel loss err {loss_err:.3g} (tol '
+        f'1e-4), worst gradient gap / leaf max {worst[0]:.3g} ({worst[1]}; '
+        f'tol 1e-3 over {len(c["grads"])} leaves), ReLU flips aligned '
+        f'{flips} (max |input| {kink:.3g}, bound {KINK_BOUND:g})')
+    if not (c['logs']['num_pos'] > 0 and a['logs']['num_pos']
+            == c['logs']['num_pos'] and c['logs']['mask_loss'] > 0):
+        raise RuntimeError('the positive branch at the CLI caps: no or '
+                           'unequal positives')
+    if loss_err > 1e-4 or worst[0] > 1e-3 or kink > KINK_BOUND:
+        raise RuntimeError('card and CPU disagree on the refinement\'s '
+                           'positive branch at the CLI caps')
 
 
 def host_builders(data: dict) -> None:
@@ -2167,9 +2980,9 @@ class AlignedReLU:
 
 
 def small_train_check(entry, sg, blocks, small_caps, scene, lift,
-                      dev) -> None:
-    """One all-params f32 train step of the flagship training config on a
-    20k-point scene, from the same weights and the same (r1, r2), on the
+                      dev, tcfg=None, tag: str = 'small-train') -> None:
+    """One all-params f32 train step of the flagship training config (or
+    the model section ``tcfg``) on a 20k-point scene, from the same weights and the same (r1, r2), on the
     CPU (plain versions) and on the card.  The offset head is zeroed, so
     the grouping runs on the exact coordinates and every run forms the same
     proposals.
@@ -2202,7 +3015,7 @@ def small_train_check(entry, sg, blocks, small_caps, scene, lift,
     xyz = (xyz * 0.5 + np.where(inst[:, None] >= 0, inst[:, None], 0)
            * np.array([1.0, 0.0, 0.0])).astype(np.float32)
     scene = (xyz, rgb, sem, inst)
-    tcfg = entry.train_cfg()
+    tcfg = tcfg or entry.train_cfg()
     rand = torch.tensor([[0.25, 0.5, 0.75], [0.6, 0.3, 0.9]])
     up, down, again = 'one ulp up', 'one ulp down', 'card again'
     plain, skewed = 'card, plain versions', 'card, K5 skewed'
@@ -2303,7 +3116,7 @@ def small_train_check(entry, sg, blocks, small_caps, scene, lift,
     loss_err = max(abs(g['logs'][k] - v) / max(abs(v), 1e-12)
                    for k, v in c['logs'].items())
     miou, n_a, n_r = best_iou(g['props'], c['props'])
-    log(f'[small-train] one all-params f32 step on a 20k-point scene; ReLU '
+    log(f'[{tag}] one all-params f32 step on a 20k-point scene; ReLU '
         f'inputs put on the CPU\'s side of 0 (flips, max |input| at a flip; '
         f'bound {KINK_BOUND:g}): ' + ', '.join(
             f'{r} {n} ({w:.3g})' for r, (n, w) in kinks.items()))
@@ -2311,25 +3124,25 @@ def small_train_check(entry, sg, blocks, small_caps, scene, lift,
     if raw:
         r_, k = raw[0]
         s = float(c['grads'][k].abs().max())
-        log(f'[small-train] without the alignment the card would fail '
+        log(f'[{tag}] without the alignment the card would fail '
             f'{len(raw)} leaves; worst {k} (gap/tol {r_:.3g}): gap over the '
             f'leaf max: card {gap(raw_card, k) / s:.4g}, CPU with the input '
             f'one ulp up {gap(raw_up, k) / s:.4g}')
-    log(f'[small-train] {len(leaves)} gradient leaves, each held to its '
+    log(f'[{tag}] {len(leaves)} gradient leaves, each held to its '
         f'card-vs-CPU gap <= {GRAD_CTRL_FACTOR:g} x max(its gaps with the '
         f'plain versions on the card and with the input one ulp up / down '
         f'on the CPU) + 1e-5 x its max; card vs card again: max gap / leaf '
         f'max {det:.3g}; the 8 leaves with the largest gap / tol (gaps to '
         f'the CPU over the leaf max; rows = rows of its batch norm):')
     for r_, k, s in leaves[:8]:
-        log(f'[small-train]   {k}: gap/tol {r_:.3g}, max {s:.4g}, card '
+        log(f'[{tag}]   {k}: gap/tol {r_:.3g}, max {s:.4g}, card '
             f'{gap("card", k) / s:.4g}, plain on card {gap(plain, k) / s:.4g}'
             f', {up} {gap(up, k) / s:.4g}, {down} {gap(down, k) / s:.4g}, '
             f'rows {rows_of(k)}')
     caught = failing(skewed)
-    log(f'[small-train] negative control, K5\'s result x (1 + '
+    log(f'[{tag}] negative control, K5\'s result x (1 + '
         f'{SkewedK5.SKEW:g}): {len(caught)} leaves fail (must be > 0)')
-    log(f'[small-train] card vs CPU: max rel loss err {loss_err:.3g} (tol '
+    log(f'[{tag}] card vs CPU: max rel loss err {loss_err:.3g} (tol '
         f'1e-4), max updated-param err {param_err:.3g} (tol 1e-5 where '
         f'|CPU grad| > 10 x the leaf\'s tol and > 100 x Adam\'s eps), '
         f'proposals {n_a} vs {n_r}, mean best IoU {miou:.6f} (tol 0.99), '
@@ -2352,6 +3165,62 @@ def small_train_check(entry, sg, blocks, small_caps, scene, lift,
     if c['logs']['num_pos'] <= 0 or c['logs']['mask_loss'] <= 0:
         raise RuntimeError('small train step: no positive proposal / mask '
                            'loss')
+
+def small_odd_shape_check(entry, sg, small_caps, scene, lift, reset_counts,
+                          read_counts, dev) -> None:
+    """A flagship request at ``instance_voxel_cfg.spatial_shape`` 9 (odd:
+    the refinement U-Net runs on rulebook levels, K7 rules and K1 convs, as
+    the reference's does) on the card (f32); the card's
+    ``clusters_voxelization`` inputs run again through it and
+    ``instance_head`` on the CPU (plain versions, the same weights): cls
+    and iou scores and mask scores within 1e-3 (f32 sums in another order
+    through the tiny U-Net)."""
+    import numpy as np
+    import torch
+    cfg = entry.flagship_cfg()
+    cfg.instance_voxel_cfg.spatial_shape = 9
+    nets = {d: lift(entry.build_net(cfg, seed=1, device=d, bf16=False))
+            for d in ('cpu', dev)}
+    batch = entry.build_batch(scene, cfg, small_caps, device=dev)
+    kept = []
+    orig = sg.clusters_voxelization
+
+    def keep(*a, **kw):
+        kept.append(a)
+        return orig(*a, **kw)
+    sg.clusters_voxelization = keep
+    try:
+        reset_counts()
+        out = entry.infer(nets[dev], batch, cfg, small_caps)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    finally:
+        sg.clusters_voxelization = orig
+    (args,) = kept
+    cpu_args = [a.cpu() if torch.is_tensor(a) else
+                sg.Proposals(*(t.cpu() for t in a))
+                if isinstance(a, sg.Proposals) else a for a in args]
+    with torch.no_grad():
+        vox, levels, p2v = orig(*cpu_args)
+        cls, iou, mask = nets['cpu'].instance_head(vox, levels, p2v,
+                                                   small_caps.proposals)
+    want = dict(cls_scores=torch.softmax(cls, dim=-1), iou_scores=iou,
+                mask_scores=mask)
+    errs = {k: float((out[k].cpu() - v).abs().max()) for k, v in
+            want.items()}
+    n_prop = int(out['n_proposals'])
+    log(f'[small-odd] card vs CPU, a 20k-point request at spatial_shape 9 '
+        f'(rulebook levels: K7 launches '
+        f'{counts["sorted_key_rules_join"]}, K1 {counts["rulebook_conv"]}, '
+        f'K4 {counts["keyed_conv"]}), {n_prop} proposals, the card\'s '
+        f'refinement inputs on both: max err '
+        + ', '.join(f'{k} {v:.3g}' for k, v in errs.items()) + ' (tol 1e-3)')
+    if (n_prop <= 0 or counts['sorted_key_rules_join'] <= 0
+            or counts['keyed_conv'] or max(errs.values()) > 1e-3
+            or not all(np.isfinite(v) for v in errs.values())):
+        raise RuntimeError('the odd spatial_shape request: card and CPU '
+                           'disagree or the refinement took keyed levels')
+
 
 if __name__ == '__main__':
     sys.exit(main())

@@ -153,13 +153,15 @@ def build_net(cfg: Config, seed: int = 0, device='cuda',
               bf16: bool = True) -> SoftGroupNet:
     """The net of a model section ``cfg`` with a seeded init, in eval
     mode on ``device``; its input has ``cfg.in_channels`` channels where
-    the config gives them, else 6 (colour and coordinates)."""
+    the config gives them, else 6 (colour and coordinates) or, where
+    ``with_coords`` is off (STPLS3D), 3 (colour)."""
     gen = torch.Generator().manual_seed(seed)
+    cin = cfg.get('in_channels', 6 if cfg.get('with_coords', True) else 3)
     net = SoftGroupNet(channels=cfg.channels, num_blocks=cfg.num_blocks,
                        semantic_classes=cfg.semantic_classes,
                        instance_classes=cfg.instance_classes,
                        semantic_only=cfg.semantic_only, bf16=bf16,
-                       in_channels=cfg.get('in_channels', 6),
+                       in_channels=cin,
                        generator=gen)
     return net.to(device).eval()
 

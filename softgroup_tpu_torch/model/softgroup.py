@@ -22,7 +22,7 @@ from torch import nn
 
 from ..ops.gather_kernel import gather_rows, row_gather
 from ..ops.geometry import LevelGeom, Pyramid
-from ..ops.grouping import cell_cluster_csr
+from ..ops.grouping import ball_cluster, cell_cluster_csr
 from ..ops.masks import mask_iou_on_cluster, mask_iou_on_pred, mask_label
 from ..ops.rulebook import build_downsample_linear, build_subm_rules_linear
 from ..ops.segment import (segment_max, segment_mean, segment_mean_fused,
@@ -316,15 +316,15 @@ def forward_grouping(semantic_scores: torch.Tensor, pt_offsets: torch.Tensor,
     whose softmax score clears score_thr; classes with fewer than min_npoint
     active points yield nothing; all classes cluster in one call (the group
     key separates them) and components below the class-size threshold are
-    dropped.
+    dropped.  Clustering contracts grid cells (``cell_cluster_csr``), or,
+    with ``exact_ball_query``, links entries within the radius
+    (``ball_cluster``).
 
     ``with_pyramid`` (SoftGroup++): a class's entry coordinates are divided
     by its pyramid level, which equals scaling its cell size and radius by
     the level (the group key keeps classes apart).  A true f32 division,
     as the reference's: a product with 1/3 rounds otherwise."""
     gcfg = cfg.grouping_cfg
-    if getattr_or(gcfg, 'exact_ball_query', False):
-        raise NotImplementedError('exact_ball_query grouping is not ported')
     dev = semantic_scores.device
     p, n_cls = semantic_scores.shape
     n_tot = caps.grouping_points
@@ -372,15 +372,28 @@ def forward_grouping(semantic_scores: torch.Tensor, pt_offsets: torch.Tensor,
         shifted = shifted / pyramid_levels(counts, gcfg)[cls_e.long()][:, None]
     group = wide[:, 3].to(torch.int32) * n_cls + cls_e
 
-    cell_scale = float(getattr_or(gcfg, 'cell_scale', 1.0))
     thr_cls = torch.where(numpoint_mean == -1.0,
                           torch.full_like(numpoint_mean, npoint_thr),
                           npoint_thr * numpoint_mean)
-    ent_label, pt_sorted = cell_cluster_csr(
-        shifted, group, valid_e, pt_e, thr_cls, radius,
-        cell_scale=cell_scale, m_cap=caps.grouping_cells,
-        pair_keys=bool(getattr_or(gcfg, 'pair_keys', True)))
-    key = torch.where(ent_label >= 0, ent_label, INT_MAX)
+    if getattr_or(gcfg, 'exact_ball_query', False):
+        # point-level radius-graph components, labelled by their minimum
+        # entry index; the class-size threshold in that label space
+        labels = ball_cluster(shifted, group, valid_e, radius)
+        sizes = torch.zeros((n_tot + 1,), dtype=torch.float32,
+                            device=dev).index_add_(
+            0, torch.where(labels >= 0, labels, n_tot).long(),
+            torch.ones((n_tot,), dtype=torch.float32, device=dev))
+        size_of = sizes[labels.long().clamp(0, n_tot - 1)]
+        keep = valid_e & (labels >= 0) & (size_of >= thr_cls[cls_e.long()])
+        key = torch.where(keep, labels, INT_MAX)
+        pt_sorted = pt_e
+    else:
+        ent_label, pt_sorted = cell_cluster_csr(
+            shifted, group, valid_e, pt_e, thr_cls, radius,
+            cell_scale=float(getattr_or(gcfg, 'cell_scale', 1.0)),
+            m_cap=caps.grouping_cells,
+            pair_keys=bool(getattr_or(gcfg, 'pair_keys', True)))
+        key = torch.where(ent_label >= 0, ent_label, INT_MAX)
 
     # global static CSR
     s_cap, p_max = caps.proposal_entries, caps.proposals
@@ -413,12 +426,12 @@ def clusters_voxelization(props: Proposals, feats: torch.Tensor,
     the proposal id as the batch coordinate.  Returns (vox_feats, levels,
     entry_p2v).
 
-    Inference (``rand`` None): keyed levels for K4.  Training: ``rand`` is
+    Inference (``rand`` None) at an even ``spatial_shape``: keyed levels
+    for K4.  Training, and inference at an odd shape (as the reference):
+    levels with explicit rulebooks (K7) for K1; in training ``rand`` is
     (r1, r2), the (2, 3) uniform numbers of the random quantization, one
-    3-vector shared by all clusters; the levels carry explicit rulebooks
-    (K7), so the conv backwards reuse them."""
-    if spatial_shape % 2 and rand is None:
-        raise NotImplementedError('keyed levels need an even spatial_shape')
+    3-vector shared by all clusters, and the conv backwards reuse the
+    rulebooks."""
     p_max = props.prop_valid.shape[0]
     comb = gather_rows(torch.cat([coords_float, feats.float()], dim=1),
                        props.entry_pt)
@@ -450,7 +463,7 @@ def clusters_voxelization(props: Proposals, feats: torch.Tensor,
     vx, ckey = voxelize_linear(c4, props.entry_valid, dims,
                                caps.inst_voxels[0])
     vox_feats = segment_mean_fused(fe, vx.p2v, caps.inst_voxels[0])
-    if rand is None:
+    if rand is None and spatial_shape % 2 == 0:
         levels = build_keyed_levels(vx, ckey, spatial_shape,
                                     caps.inst_voxels)
     else:

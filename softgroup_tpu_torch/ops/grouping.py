@@ -23,6 +23,14 @@ grid-cell contraction (counterpart of ``softgroup_tpu/ops/grouping.py``,
 The reference's top_k compaction, sparse-table reductions and bf16x3 splits
 are TPU cost workarounds; ``torch.nonzero`` and plain indexing compute the
 same values.
+
+``ball_cluster`` (``grouping_cfg.exact_ball_query``) is the point-level
+alternative: connected components of the radius graph over a truncated
+candidate list, labelled by the minimum entry index (the reference's
+``ball_cluster``).  Its reverse-adjacency table and verification scatter
+round are TPU workarounds for slow scatters: here a ``scatter_reduce``
+(amin) over both directions of each edge, run to its fixpoint, gives the
+same labels.
 """
 
 from __future__ import annotations
@@ -56,6 +64,97 @@ def offsets(reach: int) -> np.ndarray:
                   if (x, y, z) != (0, 0, 0)], np.int32)
     a.flags.writeable = False
     return a
+
+
+def ball_cluster(shifted: torch.Tensor, group: torch.Tensor,
+                 valid: torch.Tensor, radius: float,
+                 neighbors_per_cell: int = 4, own_window: int = 4,
+                 max_rounds: int = 256) -> torch.Tensor:
+    """Connected components of the radius graph, per group.
+
+    The candidate graph: entries bucketed into cells of edge ``radius``
+    under one int64 key ((group*d0 + x)*d1 + y)*d2 + z (the reference's
+    pair key (group*d0 + x, y*d2 + z) in one word), sorted by (key, index);
+    each entry takes the ``own_window`` entries before it in its own cell
+    and the first ``neighbors_per_cell`` entries of each of the 26 adjacent
+    cells, and keeps those within ``radius`` (d^2 <= r^2 in f32).  That
+    truncation is the reference's, so dense blobs give its labels.
+
+    Args:
+      shifted: (N, 3) f32 entry coordinates; group: (N,) int group id;
+        valid: (N,) bool; radius: the connection radius.
+    Returns:
+      (N,) int32: the minimum entry index of the entry's component, -1 for
+      an invalid entry.  Raises where the propagation has not reached its
+      fixpoint after ``max_rounds`` rounds.
+    """
+    n = shifted.shape[0]
+    dev = shifted.device
+    idxs = torch.arange(n, device=dev)
+    r = float(np.float32(radius))
+    inf = torch.full_like(shifted, math.inf)
+    mn = torch.where(valid[:, None], shifted, inf).amin(dim=0)
+    mn = torch.where(torch.isfinite(mn), mn, torch.zeros_like(mn))
+    cell = torch.floor((shifted - mn[None, :]) / r).to(torch.int32)
+    cell = cell.clamp(min=0)
+    dims = torch.where(valid[:, None], cell, 0).amax(dim=0) + 2    # (3,)
+    key_max = torch.iinfo(torch.int64).max
+    ck, dk = cell.long(), dims.long()
+    key = ((group.long() * dk[0] + ck[:, 0]) * dk[1] + ck[:, 1]) * dk[2] \
+        + ck[:, 2]
+    key = torch.where(valid, key, key_max)
+    key_s, order = torch.sort(key, stable=True)
+    pos = torch.empty_like(order)
+    pos[order] = idxs
+    first = (key_s != key_max) & (key_s != torch.cat(
+        [key_s.new_full((1,), -1), key_s[:-1]]))
+    run_start = torch.cummax(torch.where(first, idxs, -1), dim=0).values
+
+    # (a) the own cell: the own_window entries before it in sorted order
+    p_own = pos[:, None] - torch.arange(1, own_window + 1, device=dev)
+    ok_own = valid[:, None] & (p_own >= run_start[pos][:, None])
+    own = torch.where(ok_own, order[p_own.clamp(0, n - 1)], -1)
+    # (b) the first neighbors_per_cell entries of each adjacent cell, found
+    # by a search of the sorted keys (the axis checks keep each query key
+    # that of the neighbouring cell)
+    offs = torch.tensor(offsets(1), dtype=torch.int64, device=dev)  # (26, 3)
+    ok_axis = valid[None, :] & torch.where(
+        offs[:, None, :] < 0, (ck > 0)[None], True).all(-1) & torch.where(
+        offs[:, None, :] > 0, (ck + 1 < dk)[None], True).all(-1)  # (26, N)
+    d_key = (offs[:, 0] * dk[1] + offs[:, 1]) * dk[2] + offs[:, 2]
+    q = torch.where(ok_axis, key[None, :] + d_key[:, None], key_max)
+    hit = torch.searchsorted(key_s, q)                              # (26, N)
+    p_nb = hit[:, :, None] + torch.arange(neighbors_per_cell, device=dev)
+    pc_nb = p_nb.clamp(max=n - 1)
+    ok_nb = ok_axis[:, :, None] & (p_nb < n) & (key_s[pc_nb] == q[:, :, None])
+    nb = torch.where(ok_nb, order[pc_nb], -1)                       # (26,N,J)
+    cand = torch.cat([own, nb.permute(1, 0, 2).reshape(n, -1)], dim=1)
+
+    # the exact distance check
+    ci = cand.clamp(min=0)
+    other = row_gather(shifted, ci.reshape(-1)).reshape(n, -1, 3)
+    d = shifted[:, None, :] - other
+    d2 = d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1] + d[..., 2] * d[..., 2]
+    ok = (cand >= 0) & valid[:, None] & valid[ci] \
+        & (d2 <= float(np.float32(r) * np.float32(r)))
+    src = idxs[:, None].expand_as(cand)[ok]
+    dst = cand[ok]
+
+    # components of the undirected graph: min-label propagation over both
+    # directions of each edge, with pointer jumping, to its fixpoint
+    lab = torch.where(valid, idxs, n)
+    for _ in range(max_rounds):
+        new = lab.scatter_reduce(0, dst, lab[src], reduce='amin')
+        new = new.scatter_reduce(0, src, lab[dst], reduce='amin')
+        for _ in range(6):
+            new = torch.minimum(new, new[new.clamp(max=n - 1)])
+        if torch.equal(new, lab):
+            break
+        lab = new
+    else:
+        raise RuntimeError(f'ball_cluster: labels still changing after '
+                           f'{max_rounds} rounds')
+    return torch.where(valid, lab, -1).to(torch.int32)
 
 
 def cell_cluster_csr(shifted: torch.Tensor, group: torch.Tensor,

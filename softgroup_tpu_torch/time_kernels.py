@@ -278,22 +278,23 @@ def k1_k2_args(calls: dict, v0: int, cells: int) -> dict:
     }
 
 
-def k4_args(calls: list) -> dict:
+def k4_args(calls: list, ch: int = 32) -> dict:
     """K4's two cases (the refinement U-Net's subm conv on the D=20 grid
     and its down conv onto D=10), as (args, kwargs) by label, from the
-    recorded ``keyed_conv`` calls of one request."""
+    recorded ``keyed_conv`` calls of one request of a net ``ch`` wide."""
     return {
-        'K4 subm D=20 32->32': pick(
+        f'K4 subm D=20 {ch}->{ch}': pick(
             calls, lambda a, k: not k['strided'] and a[4] == 20
-            and a[1].shape[1:] == (32, 32), 'keyed subm D=20'),
-        'K4 down D=10 32->64': pick(
+            and a[1].shape[1:] == (ch, ch), 'keyed subm D=20'),
+        f'K4 down D=10 {ch}->{2 * ch}': pick(
             calls, lambda a, k: k['strided'] and a[4] == 10,
             'keyed down D=10'),
     }
 
 
 def request_args(calls: dict, caps, tag: str,
-                 n_heads: int | None = None, cin: int = 6) -> dict:
+                 n_heads: int | None = None, cin: int = 6,
+                 ch: int = 32) -> dict:
     """The K1, K2 and K4 cases of one request of ``chip_smoke.py`` beyond
     the flagship's, as (args, kwargs) by label (``tag`` after the kernel),
     from its recorded calls (``caps``: its bucketed capacities): the
@@ -303,16 +304,17 @@ def request_args(calls: dict, caps, tag: str,
     entries are voxels; None: a request that devoxelizes (V0, 32) bf16
     features and groups points (the S3DIS request, its x4_split parts in
     one level-0 grid, and the SemanticKITTI request).  ``cin``: the
-    input conv's channels (1 for SemanticKITTI's remission)."""
+    input conv's channels (1 for SemanticKITTI's remission, 3 for
+    STPLS3D's colour); ``ch``: the net's width (16 for STPLS3D)."""
     import torch
     conv, gather = calls['rulebook_conv'], calls['row_gather']
     v0, p, m = caps.voxels[0], caps.grouping_points, caps.grouping_cells
     rows, rname = (v0, 'V0') if n_heads else (caps.points, 'N')
     out = {
-        f'K1 {tag} L0 subm 32->32 bf16 (V0={v0})': pick(
+        f'K1 {tag} L0 subm {ch}->{ch} bf16 (V0={v0})': pick(
             conv, lambda a, k: a[2].shape == (27, v0)
-            and a[1].shape[1:] == (32, 32), f'{tag} L0 subm'),
-        f'K1 {tag} input conv {cin}->32 bf16 (V0={v0})': pick(
+            and a[1].shape[1:] == (ch, ch), f'{tag} L0 subm'),
+        f'K1 {tag} input conv {cin}->{ch} bf16 (V0={v0})': pick(
             conv, lambda a, k: a[1].shape[1] == cin, f'{tag} input conv'),
     }
     if n_heads:
@@ -320,9 +322,9 @@ def request_args(calls: dict, caps, tag: str,
             gather, lambda a, k: a[0].dtype == torch.float32
             and a[0].shape == (v0, n_heads), f'{tag} heads gather')
     else:
-        out[f'K2 {tag} devoxelize (V0, 32) bf16 (V0={v0})'] = pick(
+        out[f'K2 {tag} devoxelize (V0, {ch}) bf16 (V0={v0})'] = pick(
             gather, lambda a, k: a[0].dtype == torch.bfloat16
-            and a[0].shape == (v0, 32), f'{tag} devoxelize')
+            and a[0].shape == (v0, ch), f'{tag} devoxelize')
     out[f'K2 {tag} grouping entries ({rname}, 4) f32 -> P={p}'] = pick(
         gather, lambda a, k: a[0].dtype == torch.float32
         and a[0].shape == (rows, 4) and a[1].shape == (p,),
@@ -330,7 +332,7 @@ def request_args(calls: dict, caps, tag: str,
     out[f'K2 {tag} cell labels (m+1,) int32 (m={m})'] = pick(
         gather, lambda a, k: a[0].dim() == 1 and a[0].shape[0] == m + 1,
         f'{tag} labels')
-    for label, args in k4_args(calls['keyed_conv']).items():
+    for label, args in k4_args(calls['keyed_conv'], ch).items():
         out[f'K4 {tag} {label[3:]}'] = args
     return out
 

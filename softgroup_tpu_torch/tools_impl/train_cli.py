@@ -123,9 +123,10 @@ def main(argv=None, stats: dict | None = None) -> None:
     """Runs the CLI on ``argv`` (None: ``sys.argv``).  ``stats``, when
     given, receives ``steps_per_epoch``, ``start_epoch``, ``load_ms``
     (``--resume``), per step (``steps``) the epoch, update, learning rate,
-    data wait and iteration ms, level-0 voxels, peak memory and losses,
-    and per epoch (``epochs``) its training wall, checkpoint save ms,
-    validation wall and metrics."""
+    data wait and iteration ms, level-0 voxels, peak memory, losses and
+    the gradients' global norm before the clip (None without
+    ``clip_grad_norm``), and per epoch (``epochs``) its training wall,
+    checkpoint save ms, validation wall and metrics."""
     args = parse_args(argv)
     if args.num_devices not in (0, 1):
         raise NotImplementedError(
@@ -206,7 +207,9 @@ def _train(args, cfg, work_dir: str, logger, writer, stats: dict) -> None:
                 update=state.step.updates - 1,
                 lr=state.optimizer.param_groups[0]['lr'],
                 data_ms=data_time.val * 1e3, iter_ms=iter_time.val * 1e3,
-                l0_voxels=n_voxels, mem_mb=get_max_memory(), logs=logs))
+                l0_voxels=n_voxels, mem_mb=get_max_memory(), logs=logs,
+                grad_norm=(None if state.step.grad_norm is None
+                           else float(state.step.grad_norm))))
             end = time.time()
             if step_in_epoch % 10 == 0:
                 lr = schedule(state.step.updates)

@@ -29,7 +29,9 @@ class TrainStep:
     ``updates`` counts the optimizer's updates; update k (0-based) runs at
     ``schedule(k)`` where a schedule is given (``optax``'s count), else at
     the optimizer's own learning rate.  ``clip_grad_norm``: the global
-    norm the trainable gradients are clipped to (none where unset)."""
+    norm the trainable gradients are clipped to (none where unset);
+    ``grad_norm`` then holds the last step's global norm before the clip
+    (a 0-d tensor), else None."""
 
     def __init__(self, net: SoftGroupNet, cfg, caps,
                  optimizer: torch.optim.Optimizer, frozen_modules=(),
@@ -41,6 +43,7 @@ class TrainStep:
         self.schedule = schedule
         self.clip_grad_norm = clip_grad_norm
         self.updates = 0
+        self.grad_norm = None
 
     def __call__(self, batch, generator: torch.Generator | None = None,
                  rand: torch.Tensor | None = None) -> dict:
@@ -50,7 +53,7 @@ class TrainStep:
             batch, self.cfg, self.caps, generator=generator, rand=rand)
         loss.backward()
         if self.clip_grad_norm:
-            torch.nn.utils.clip_grad_norm_(
+            self.grad_norm = torch.nn.utils.clip_grad_norm_(
                 [p for g in self.optimizer.param_groups for p in g['params']],
                 self.clip_grad_norm)
         if self.schedule is not None:

@@ -162,6 +162,40 @@ def test_test_forward_refinement(forwards):
                                    err_msg=k)
 
 
+def test_test_forward_odd_spatial_shape(batches, jax_model, monkeypatch):
+    """An odd ``instance_voxel_cfg.spatial_shape`` (9) at inference: the
+    refinement U-Net runs on rulebook levels (K7 rules, K1 convs), as the
+    reference's does; the same proposals, and cls / mask / iou scores
+    within rtol / atol 1e-4 of the reference's."""
+    from softgroup_tpu_torch.model import softgroup as sg
+    tb, jb = batches
+    jnet, variables = jax_model
+    cfg = tiny_cfg(dict(TINY, instance_voxel_cfg=dict(scale=10,
+                                                      spatial_shape=9)))
+    ref = jax.jit(lambda v, b: jnet.apply(v, b, cfg, JCaps(**CAPS),
+                                          method=jnet.test_forward))(
+        variables, jb)
+    net = SoftGroupNet(channels=8, num_blocks=3, semantic_classes=6,
+                       instance_classes=4, bf16=False)
+    net.load_state_dict(from_jax_variables(variables))
+    built = []
+
+    def pyramid(*a, _f=sg.build_pyramid_from_voxels):
+        built.append(a[2])
+        return _f(*a)
+    monkeypatch.setattr(sg, 'build_pyramid_from_voxels', pyramid)
+    out = net.eval().test_forward(tb, cfg, Capacities(**CAPS))
+    assert built == [(9, 9, 9)]
+    out = {k: v.numpy() for k, v in out.items()}
+    ref = {k: np.asarray(v) for k, v in ref.items()}
+    assert int(ref['n_proposals']) > 0
+    for k in ('entry_pt', 'entry_seg', 'entry_valid', 'n_proposals'):
+        np.testing.assert_array_equal(out[k], ref[k], err_msg=k)
+    for k in ('cls_scores', 'iou_scores', 'mask_scores'):
+        np.testing.assert_allclose(out[k], ref[k], rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+
+
 def test_get_instances_matches(forwards, batches):
     out, _ = forwards
     tb, _ = batches
@@ -187,7 +221,8 @@ def test_port_imports_no_jax():
         '             "data.kitti", "evaluation.panoptic_eval",\n'
         '             "util.checkpoint", "util.logger",\n'
         '             "tools_impl.test_cli", "tools_impl.train_cli",\n'
-        '             "util.optim", "train"):\n'
+        '             "util.optim", "train", "ops.grouping",\n'
+        '             "model.softgroup", "data.stpls3d", "time_kernels"):\n'
         '    assert "softgroup_tpu_torch." + name in sys.modules, name\n')
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
