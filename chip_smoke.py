@@ -89,8 +89,12 @@ non-zero):
      batch, the semantic head's bias lifted) for stage 2
      (``softgroup_scannet.yaml``, frozen backbone) for 2 epochs, then
      ``--resume --epochs 3``; then the test CLI on stage 2's epoch-2
-     checkpoint.  Counters set to 0 just before each stage and read just
-     after (validation's launches apart), with each step's data wait,
+     checkpoint with ``--out``, and the offline tools on what it wrote
+     (``eval_saved``: the CLI's AP, AP50 and AP25; ``eval_det``: box AP
+     over a box for each predicted instance; ``visualization``: a ``.ply``
+     of each task for one room).  Counters set to 0 just before each
+     stage and read just after (validation's launches apart), with each
+     step's data wait,
      iteration ms, learning rate, losses, level-0 voxels and peak memory,
      each epoch's wall, checkpoint save / load ms, validation wall and
      metrics, the data wait past each epoch's first step; checks on the
@@ -114,6 +118,20 @@ non-zero):
      under the profiler.  Its K1 (input conv 1->32, level 0) / K2 / K3
      (int64) / K5 / K6 calls at the yaml's capacities, recorded in phase 2,
      are held to their plain versions there;
+  4d. data-parallel training (``parallel/ddp.py``, ``TrainStep`` with a
+     process group): the flagship train step (the yaml's model section,
+     bf16, all parameters) on two ranks spawned over gloo, both on this
+     card, each with its own batch of 4 x 250k-point rooms (seeds
+     200-203, 204-207) and its own draws: 1 warm-up and 3 timed steps,
+     counters set to 0 just before the timed steps and read just after,
+     one step under the profiler; checks that the averaged gradients equal
+     the mean of the ranks' local gradients (one backward each on the same
+     batch and draw with no group), that parameters and batch-norm buffers
+     agree bit for bit across the ranks after every step and the buffers
+     equal the mean of the local updates, and that K1, K2, K3, K5, K6 and
+     K7 launched on each rank; then one rank over NCCL (world 1), whose
+     step must give the parameters of the same step with no group bit for
+     bit.  Each rank prints a ``[ddp]`` line;
   5. small inputs through the card (f32) against the same port on the CPU
      (plain PyTorch versions of every kernel): a request, then a train step
      held gradient leaf by gradient leaf against control runs
@@ -202,6 +220,34 @@ def small_capacities():
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def kernel_wrappers() -> dict:
+    """The seven kernel wrappers by name (each counts its launches)."""
+    from softgroup_tpu_torch.ops import conv_kernel as ck
+    from softgroup_tpu_torch.ops import gather_kernel as gk
+    from softgroup_tpu_torch.ops import join_kernel as jk
+    return dict(rulebook_conv=ck.rulebook_conv, row_gather=gk.row_gather,
+                cell_neighbor_join=jk.cell_neighbor_join,
+                keyed_conv=ck.keyed_conv,
+                rulebook_conv_dw=ck.rulebook_conv_dw,
+                sorted_segment_sum=gk.sorted_segment_sum,
+                sorted_key_rules_join=jk.sorted_key_rules_join)
+
+
+def reset_counts() -> None:
+    """Every launch counter to 0."""
+    from softgroup_tpu_torch.ops import join_kernel as jk
+    for w in kernel_wrappers().values():
+        w.launches = 0
+    jk.cell_neighbor_join.launches64 = 0
+
+
+def read_counts() -> dict:
+    """The launch counters by wrapper (K3's int64 instance apart)."""
+    from softgroup_tpu_torch.ops import join_kernel as jk
+    return dict({k: w.launches for k, w in kernel_wrappers().items()},
+                cell_neighbor_join_int64=jk.cell_neighbor_join.launches64)
 
 
 def card_line() -> str:
@@ -929,22 +975,6 @@ def main() -> int:
     phase_done('kernels vs plain')
 
     # ---- phase 3: the serving path -------------------------------------
-    wrappers = dict(rulebook_conv=ck.rulebook_conv,
-                    row_gather=gk.row_gather,
-                    cell_neighbor_join=jk.cell_neighbor_join,
-                    keyed_conv=ck.keyed_conv,
-                    rulebook_conv_dw=ck.rulebook_conv_dw,
-                    sorted_segment_sum=gk.sorted_segment_sum,
-                    sorted_key_rules_join=jk.sorted_key_rules_join)
-
-    def reset_counts():
-        for w in wrappers.values():
-            w.launches = 0
-        jk.cell_neighbor_join.launches64 = 0
-
-    def read_counts():
-        return dict({k: w.launches for k, w in wrappers.items()},
-                    cell_neighbor_join_int64=jk.cell_neighbor_join.launches64)
 
     reset_counts()
     per_scan = []
@@ -1124,6 +1154,10 @@ def main() -> int:
     kcli_dir.cleanup()
     phase_done('KITTI train CLI')
 
+    # ---- phase 4d: data-parallel training -------------------------------
+    ddp_counts = ddp_phase(card)
+    phase_done('data-parallel training')
+
     # ---- phase 5: small inputs, card (f32) vs CPU (plain versions) ------
     small_caps = small_capacities()
     scene = make_scene(np.random.RandomState(7), n_points=20000,
@@ -1185,7 +1219,8 @@ def main() -> int:
                    'stpls3d_plus': st_counts[key],
                    'stpls3d_train': st_train_counts[key],
                    'ball': ball_counts[key],
-                   'kitti_cli': kcli_counts[key]}
+                   'kitti_cli': kcli_counts[key],
+                   'train_ddp': ddp_counts[key]}
         r_['launches'] = by_path[r_.pop('path')]
         r_['launches_by_path'] = by_path
     log(f'[phase] total: {time.perf_counter() - t_start:.3f} s')
@@ -2246,8 +2281,12 @@ def train_cli_phase(paths, batch, reset_counts, read_counts, card,
 
     # the test CLI on stage 2's epoch-2 checkpoint: the in-loop validation
     t = time.perf_counter()
+    out_dir = os.path.join(os.path.dirname(paths[1]), 'results')
+    scene_stats, results = [], []
     metrics = test_cli.main([paths[1], '--checkpoint',
-                             os.path.join(ckpt_dir(cfg2), 'epoch_2')])
+                             os.path.join(ckpt_dir(cfg2), 'epoch_2'),
+                             '--out', out_dir], scene_stats=scene_stats,
+                            results_out=results)
     want = next(e['val'] for e in stats2['epochs'] if e['epoch'] == 2)
     same = sorted(metrics) == sorted(want) and all(
         metrics[k] == want[k] or (math.isnan(metrics[k])
@@ -2258,6 +2297,7 @@ def train_cli_phase(paths, batch, reset_counts, read_counts, card,
         + f'; equal to epoch 2\'s validation: {same}')
     if not same:
         raise RuntimeError(f'test CLI {metrics} vs validation {want}')
+    offline_tools_check(paths[1], out_dir, metrics, scene_stats, results)
 
     # one step of each stage under the profiler, on a batch of the loader
     # (its copy to the card included), from the stage's last checkpoint
@@ -2276,6 +2316,82 @@ def train_cli_phase(paths, batch, reset_counts, read_counts, card,
         del net, state
     return (dict((k, train1[k] + val1[k]) for k in train1),
             dict((k, train2[k] + val2[k]) for k in train2))
+
+
+def offline_tools_check(cfg_path: str, out_dir: str, metrics: dict,
+                        scene_stats: list, results: list) -> None:
+    """The port's offline tools on the test CLI's ``--out``: ``eval_saved``
+    gives the AP, AP50 and AP25 (nan equal to nan) of ``ScanNetEval`` on
+    the CLI's in-memory ``results`` with each score at the four decimals
+    that the benchmark's index files hold (the CLI's own, unrounded metrics
+    are printed beside them), ``eval_det`` a box for each predicted
+    instance, ``visualization`` a ``.ply`` of each task for the first room
+    with a vertex a point.  Fails where the CLI predicted no instance (the
+    check would hold nothing)."""
+    import math
+    import os
+
+    from softgroup_tpu_torch.data import DATASETS
+    from softgroup_tpu_torch.evaluation import read_mesh_vertices
+    from softgroup_tpu_torch.evaluation.instance_eval import ScanNetEval
+    from softgroup_tpu_torch.tools_impl import (eval_det, eval_saved,
+                                                visualization)
+    from softgroup_tpu_torch.util.config import load_config
+    n_inst = sum(st['n_instances'] for st in scene_stats)
+    if n_inst <= 0:
+        raise RuntimeError('the test CLI predicted no instance: the offline '
+                           'tools would check nothing')
+    t = time.perf_counter()
+    res = eval_saved.main([cfg_path, out_dir])
+    saved_s = time.perf_counter() - t
+    cfg = load_config(cfg_path)
+    rounded = ScanNetEval(
+        DATASETS[cfg.data.test.type].CLASSES,
+        min_npoint=cfg.model.test_cfg.get('min_npoint')).evaluate(
+        [[dict(p, conf=float(f'{p["conf"]:.4f}'))
+          for p in r['pred_instances']] for r in results],
+        [r['gt_instances'] for r in results])
+    keys = [('AP', 'all_ap'), ('AP_50', 'all_ap_50%'),
+            ('AP_25', 'all_ap_25%')]
+
+    def equal(x, y):
+        return x == y or (math.isnan(x) and math.isnan(y))
+
+    same = all(equal(res[b], rounded[b]) for _, b in keys)
+    as_cli = all(equal(res[b], metrics[a]) for a, b in keys)
+    log(f'[tools] eval_saved on the test CLI\'s --out ({len(scene_stats)} '
+        f'rooms, {n_inst} predicted instances): '
+        + ' '.join(f'{a}={float(res[b])!r}' for a, b in keys)
+        + f' in {saved_s:.3f} s; equal to ScanNetEval on the in-memory '
+        f'results at four-decimal scores: {same}; the CLI\'s unrounded '
+        + ' '.join(f'{a}={float(metrics[a])!r}' for a, _ in keys)
+        + f' (equal: {as_cli})')
+    if not same:
+        raise RuntimeError(f'eval_saved {res} vs the in-memory results at '
+                           f'four-decimal scores {rounded}')
+    t = time.perf_counter()
+    det = eval_det.main([out_dir, '--iou', '0.25'])
+    log(f'[tools] eval_det: mAP@0.25={det["mAP"]:.6g} over {det["n_pred"]} '
+        f'predicted boxes ({n_inst} predicted instances) and {det["n_gt"]} '
+        f'gt boxes in {time.perf_counter() - t:.3f} s')
+    if det['n_pred'] != n_inst or not det['n_gt'] or not math.isfinite(
+            det['mAP']):
+        raise RuntimeError(f'eval_det: {det["n_pred"]} boxes for {n_inst} '
+                           f'instances, {det["n_gt"]} gt, mAP {det["mAP"]}')
+    room = sorted(os.listdir(os.path.join(out_dir, 'coords')))[0][:-4]
+    n_points = scene_stats[0]['n_points']
+    counts = {}
+    t = time.perf_counter()
+    for task in visualization.TASKS:
+        ply = os.path.join(out_dir, f'{room}_{task}.ply')
+        visualization.main(['--prediction_path', out_dir, '--room_name',
+                            room, '--task', task, '--out', ply])
+        counts[task] = len(read_mesh_vertices(ply))
+    log(f'[tools] visualization of {room} ({n_points} points): vertices '
+        f'{counts} in {time.perf_counter() - t:.3f} s')
+    if set(counts.values()) != {n_points}:
+        raise RuntimeError(f'visualization: vertices {counts}, not '
+                           f'{n_points}')
 
 
 def yaml_cfg(rel: str, root: str | None = None):
@@ -2733,6 +2849,236 @@ def kitti_cli_phase(path: str, batch, reset_counts, read_counts, card,
             'one train CLI step, KITTI (softgroup_kitti.yaml)', card)
     del net, state
     return dict((k, train[k] + val[k]) for k in train)
+
+
+def ddp_rank(rank: int, world: int, backend: str, init_method: str,
+             out_dir: str) -> None:
+    """One rank of phase 4d (see the module docstring), on ``cuda:0``;
+    writes its record to ``out_dir/w<world>_rank<rank>.json``.  World 2:
+    the warm-up step with the local-gradient and buffer checks, 3 timed
+    steps counted, one profiled step, every step followed by the replica
+    check.  World 1: the same step with and without the group, then 3
+    timed steps and one profiled step of the group's."""
+    import copy
+    import os
+    import warnings
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.data.synthetic import make_room_scene
+    from softgroup_tpu_torch.parallel import ddp
+    from softgroup_tpu_torch.time_kernels import kernel_rows
+    from softgroup_tpu_torch.tools_impl.train_cli import QUANT_SEED
+    from softgroup_tpu_torch.train import set_train_modes
+    from torch.autograd import DeviceType
+    warnings.filterwarnings('ignore', message='.*deterministic.*')
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the steps that are compared with a recomputation run deterministic
+    # (index_add_ through its sorted path, ~6x slower a step); the timed
+    # and profiled steps do not
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world, rank=rank)
+    try:
+        tcfg, tcaps = entry.train_cfg(), entry.train_capacities()
+
+        def lifted_net():
+            net = entry.build_net(tcfg, seed=0, device='cuda', bf16=True)
+            with torch.no_grad():
+                net.semantic_linear.final_bias[2:4] = SEMANTIC_BIAS
+            return net
+
+        scenes = [make_room_scene(np.random.RandomState(
+            TRAIN_SEED0 + 4 * rank + j), n_points=250000, n_instances=12)
+            for j in range(4)]
+        batch = entry.build_train_batch(scenes, tcfg, tcaps, device='cuda')
+        gen = torch.Generator().manual_seed(QUANT_SEED + rank)
+        rands = [torch.rand((2, 3), generator=gen)
+                 for _ in range(TRAIN_STEPS + 2)]
+        net = lifted_net()
+        state = entry.build_train_state(net, tcfg, tcaps, (),
+                                        dist.group.WORLD)
+        rec = dict(rank=rank, world=world, backend=backend,
+                   seeds=[TRAIN_SEED0 + 4 * rank + j for j in range(4)])
+
+        def replicas():
+            return ddp.replica_max_diff(list(net.parameters())
+                                        + list(net.buffers()))
+
+        def gathered_mean(tensors):
+            flat = torch.cat([t.detach().reshape(-1).float()
+                              for t in tensors]).cpu()
+            parts = [torch.empty_like(flat) for _ in range(world)]
+            dist.all_gather(parts, flat)
+            return sum(parts) / world
+
+        if world > 1:
+            # the local gradients and buffer updates: one backward of a
+            # copy on the same batch and draw, with no group
+            local = copy.deepcopy(net)
+            set_train_modes(local, ())
+            loss, llogs = local.loss_forward(batch, tcfg, tcaps,
+                                             rand=rands[0])
+            loss.backward()
+            local_g = gathered_mean([
+                p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in local.parameters()])
+            local_b = gathered_mean(ddp.norm_buffers(local))
+            rec['local_logs'] = {k: float(v.detach())
+                                 for k, v in llogs.items()}
+            del local, loss, llogs
+            state.step(batch, rand=rands[0])
+            avg_g = torch.cat([p.grad.reshape(-1) for p in
+                               net.parameters()]).float().cpu()
+            avg_b = torch.cat([b.reshape(-1) for b in
+                               ddp.norm_buffers(net)]).float().cpu()
+            rec['grad_err'] = float((avg_g - local_g).abs().max()
+                                    / local_g.abs().max())
+            rec['buffer_err'] = float((avg_b - local_b).abs().max()
+                                      / local_b.abs().max())
+            rec['replica_diff'] = [replicas()]
+        else:
+            # the same step with no group, from the same weights
+            alone = lifted_net()
+            astate = entry.build_train_state(alone, tcfg, tcaps, ())
+            astate.step(batch, rand=rands[0])
+            state.step(batch, rand=rands[0])
+            pairs = list(zip(list(net.parameters()) + list(net.buffers()),
+                             list(alone.parameters())
+                             + list(alone.buffers())))
+            rec['unequal'] = int(sum(int((a != b).sum()) for a, b in pairs))
+            rec['max_diff'] = float(max((a - b).abs().max()
+                                        for a, b in pairs))
+            rec['n_values'] = int(sum(a.numel() for a, _ in pairs))
+            del alone, astate, pairs
+            rec['replica_diff'] = []
+        torch.use_deterministic_algorithms(False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        step_ms = []
+        for i in range(1, TRAIN_STEPS + 1):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logs = state.step(batch, rand=rands[i])
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            if world > 1:
+                rec['replica_diff'].append(replicas())
+        rec['counts'] = read_counts()
+        rec['peak_mb'] = torch.cuda.max_memory_allocated() / 2 ** 20
+        rec['step_ms'] = step_ms
+        rec['step_ms_median'] = statistics.median(step_ms)
+        rec['logs'] = {k: float(v) for k, v in logs.items()}
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            state.step(batch, rand=rands[-1])
+            torch.cuda.synchronize()
+        if world > 1:
+            rec['replica_diff'].append(replicas())
+        ranges = {ev.key: ev.cpu_time_total / 1e3
+                  for ev in prof.key_averages()
+                  if ev.key.startswith('ddp.')
+                  and ev.device_type == DeviceType.CPU}
+        rows = kernel_rows(prof)
+        rec['profile'] = dict(
+            ranges_ms=ranges, busy_ms=sum(r[0] for r in rows),
+            nccl_ms=sum(r[0] for r in rows if 'nccl' in r[2].lower()),
+            copy_ms=sum(r[0] for r in rows if 'memcpy' in r[2].lower()))
+        rec['reduced_bytes'] = dict(state.step.reduced_bytes)
+        with open(os.path.join(out_dir, f'w{world}_rank{rank}.json'),
+                  'w') as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def ddp_phase(card: str) -> dict:
+    """Phase 4d (see the module docstring): world 2 over gloo, then world
+    1 over NCCL, each rank spawned; prints a ``[ddp]`` line a rank, fails
+    on any check, and returns rank 0's launch counts of the world-2
+    timed steps."""
+    import math
+    import os
+
+    import torch
+
+    from softgroup_tpu_torch.parallel import ddp
+    need = ('rulebook_conv', 'row_gather', 'cell_neighbor_join',
+            'rulebook_conv_dw', 'sorted_segment_sum',
+            'sorted_key_rules_join')
+    out = tempfile.TemporaryDirectory()
+    # a fixed cuBLAS workspace, for the repeated step's equal bits; the
+    # ranks start with it (this process's handles already exist)
+    os.environ['CUBLAS_WORKSPACE_CONFIG'] = ':4096:8'
+    recs = {}
+    try:
+        for world, backend in ((2, 'gloo'), (1, 'nccl')):
+            t = time.perf_counter()
+            torch.multiprocessing.start_processes(
+                ddp_rank, nprocs=world, start_method='spawn',
+                args=(world, backend,
+                      f'tcp://localhost:{ddp.free_port()}', out.name))
+            log(f'[ddp] world {world} over {backend}: {world} spawned '
+                f'rank(s) on cuda:0 done in {time.perf_counter() - t:.3f} s')
+            for r in range(world):
+                with open(os.path.join(out.name,
+                                       f'w{world}_rank{r}.json')) as f:
+                    recs[world, r] = json.load(f)
+    finally:
+        os.environ.pop('CUBLAS_WORKSPACE_CONFIG', None)
+        out.cleanup()
+    bad = []
+    for (world, r), rec in sorted(recs.items()):
+        prof = rec['profile']
+        rng = prof['ranges_ms']
+        nb = rec['reduced_bytes']
+        checks = (f'(a) averaged vs mean local gradients max err '
+                  f'{rec["grad_err"]:.3g} x max|g| (bound 1e-6); (b) '
+                  f'replicas\' largest difference after each step '
+                  f'{rec["replica_diff"]} (bound 0), buffers vs mean local '
+                  f'updates {rec["buffer_err"]:.3g} x max (bound 1e-6)'
+                  if world > 1 else
+                  f'the step with the group vs with none: '
+                  f'{rec["unequal"]} of {rec["n_values"]} values unequal, '
+                  f'max diff {rec["max_diff"]:.3g} (bound 0)')
+        log(f'[ddp] world {world} {rec["backend"]} rank {r} (rooms '
+            f'{rec["seeds"]}): step ms median={rec["step_ms_median"]:.3f} '
+            f'{[round(x, 3) for x in rec["step_ms"]]}; gradient all-reduce '
+            f'{rng.get("ddp.grad_allreduce", float("nan")):.3f} ms host, '
+            f'{nb["grads"]} bytes; buffer all-reduce '
+            f'{rng.get("ddp.buffer_allreduce", float("nan")):.3f} ms host, '
+            f'{nb["buffers"]} bytes; logs {nb["logs"]} bytes; profiled step: '
+            f'device busy {prof["busy_ms"]:.3f} ms, nccl kernels '
+            f'{prof["nccl_ms"]:.3f} ms, copies {prof["copy_ms"]:.3f} ms; '
+            f'peak {rec["peak_mb"]:.0f} MB; {checks}; losses '
+            + ' '.join(f'{k}={v:.6g}' for k, v in rec['logs'].items())
+            + f' [{card}]')
+        missing = [k for k in need if rec['counts'][k] <= 0]
+        log(f'[main-path] data-parallel training, world {world} rank {r}: '
+            f'launches over {TRAIN_STEPS} steps: {json.dumps(rec["counts"])}')
+        if missing:
+            bad.append(f'world {world} rank {r}: kernels never launched '
+                       f'{missing}')
+        if not all(math.isfinite(v) for v in rec['logs'].values()):
+            bad.append(f'world {world} rank {r}: non-finite losses')
+        if world > 1 and (rec['grad_err'] > 1e-6 or rec['buffer_err'] > 1e-6
+                          or any(d != 0.0 for d in rec['replica_diff'])):
+            bad.append(f'world {world} rank {r}: (a) or (b) failed')
+        if world == 1 and rec['unequal']:
+            bad.append('world 1: the step with the group differs from the '
+                       'step with none')
+    if recs[2, 0]['logs'] != recs[2, 1]['logs']:
+        bad.append('world 2: the ranks\' averaged logs differ')
+    if bad:
+        raise RuntimeError('; '.join(bad))
+    return recs[2, 0]['counts']
 
 
 def cli_positive_check(cfg_path: str, batch, dev) -> None:

@@ -236,13 +236,14 @@ def build_train_batch(scenes, cfg: Config, caps: Capacities,
 
 
 def build_train_state(net: SoftGroupNet, cfg: Config, caps: Capacities,
-                      frozen_modules=()) -> TrainState:
+                      frozen_modules=(), group=None) -> TrainState:
     """The optimizer section of ``configs/softgroup/softgroup_scannet.yaml``
     (Adam) over the trainable parameters of ``net`` at its constant
     learning rate (no schedule, no clip: ``tools_impl/train_cli.py`` adds
     them) and its train step; ``frozen_modules`` (e.g.
-    ``cfg.fixed_modules``) keep ``requires_grad`` False."""
+    ``cfg.fixed_modules``) keep ``requires_grad`` False; ``group``: the
+    process group the step averages over (``train.TrainStep``)."""
     opt = build_optimizer(freeze(net, frozen_modules),
                           load_config(SCANNET_YAMLS[1]).optimizer)
     return TrainState(net, opt, make_train_step(net, cfg, caps, opt,
-                                                frozen_modules))
+                                                frozen_modules, group=group))

@@ -47,10 +47,11 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None, scene_stats: list | None = None) -> dict:
+def main(argv=None, scene_stats: list | None = None,
+         results_out: list | None = None) -> dict:
     """Runs the CLI on ``argv`` (None: ``sys.argv``) and returns the metric
     dict; ``scene_stats``, when given, receives each scan's ``run_scene``
-    stats."""
+    stats, and ``results_out`` each scan's results."""
     args = parse_args(argv)
     cfg = load_config(args.config)
     logger = get_root_logger()
@@ -61,6 +62,8 @@ def main(argv=None, scene_stats: list | None = None) -> dict:
     results, dataset = run_split(
         net, cfg, entry.caps_from_cfg(cfg), cfg.tpu.num_levels, logger,
         args.max_scenes, args.device, scene_stats)
+    if results_out is not None:
+        results_out.extend(results)
     metrics = summarize(results, cfg, dataset, logger)
     for k, v in metrics.items():
         logger.info(f'{k}: {v}')

@@ -1,6 +1,8 @@
-"""One-device train step (counterpart of ``softgroup_tpu/parallel/mesh.py``
-``TrainState`` / ``make_train_step`` without a mesh): ``loss_forward`` ->
-``backward`` -> clip -> optimizer step at the scheduled learning rate.
+"""The train step (counterpart of ``softgroup_tpu/parallel/mesh.py``
+``TrainState`` / ``make_train_step``): ``loss_forward`` -> ``backward`` ->
+(with a process group: the gradients, logs and batch-norm statistics
+averaged over its ranks, ``parallel/ddp.py``) -> clip -> optimizer step at
+the scheduled learning rate.
 
 Frozen modules keep ``requires_grad`` False (no gradient is computed for
 them, as the reference leaves them out of ``value_and_grad``), and the
@@ -15,6 +17,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from .model.softgroup import SoftGroupNet
+from .parallel.ddp import average_step
 
 # the modules whose batch norms the reference switches by ``_t``
 BACKBONE_NORM_MODULES = ('unet', 'output_norm', 'semantic_linear',
@@ -31,19 +34,28 @@ class TrainStep:
     the optimizer's own learning rate.  ``clip_grad_norm``: the global
     norm the trainable gradients are clipped to (none where unset);
     ``grad_norm`` then holds the last step's global norm before the clip
-    (a 0-d tensor), else None."""
+    (a 0-d tensor), else None.
+
+    ``group``: a process group whose ranks each step on their own batch;
+    the step then averages over the group, before the clip, the trainable
+    gradients (``grad_norm`` is the averaged gradients' norm), the logs it
+    returns and the updated batch-norm buffers, and ``reduced_bytes``
+    holds the bytes of each kind it reduced (``grads``, ``logs``,
+    ``buffers``).  None: this process's step alone."""
 
     def __init__(self, net: SoftGroupNet, cfg, caps,
                  optimizer: torch.optim.Optimizer, frozen_modules=(),
                  schedule: Callable[[int], float] | None = None,
-                 clip_grad_norm: float | None = None):
+                 clip_grad_norm: float | None = None, group=None):
         self.net, self.cfg, self.caps = net, cfg, caps
         self.optimizer = optimizer
         self.frozen = tuple(frozen_modules)
         self.schedule = schedule
         self.clip_grad_norm = clip_grad_norm
+        self.group = group
         self.updates = 0
         self.grad_norm = None
+        self.reduced_bytes = None
 
     def __call__(self, batch, generator: torch.Generator | None = None,
                  rand: torch.Tensor | None = None) -> dict:
@@ -52,10 +64,13 @@ class TrainStep:
         loss, log_vars = self.net.loss_forward(
             batch, self.cfg, self.caps, generator=generator, rand=rand)
         loss.backward()
+        params = [p for g in self.optimizer.param_groups for p in g['params']]
+        if self.group is not None:
+            log_vars, self.reduced_bytes = average_step(
+                params, self.net, log_vars, self.group)
         if self.clip_grad_norm:
             self.grad_norm = torch.nn.utils.clip_grad_norm_(
-                [p for g in self.optimizer.param_groups for p in g['params']],
-                self.clip_grad_norm)
+                params, self.clip_grad_norm)
         if self.schedule is not None:
             lr = self.schedule(self.updates)
             for group in self.optimizer.param_groups:
@@ -82,7 +97,8 @@ def set_train_modes(net: SoftGroupNet, frozen_modules) -> None:
 
 def make_train_step(net: SoftGroupNet, cfg, caps,
                     optimizer: torch.optim.Optimizer, frozen_modules=(),
-                    schedule=None, clip_grad_norm=None) -> TrainStep:
+                    schedule=None, clip_grad_norm=None,
+                    group=None) -> TrainStep:
     """The train step of ``net`` (see ``TrainStep``)."""
     return TrainStep(net, cfg, caps, optimizer, frozen_modules, schedule,
-                     clip_grad_norm)
+                     clip_grad_norm, group)

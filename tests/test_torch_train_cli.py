@@ -546,8 +546,3 @@ def test_train_cli_main(tiny, two_steps, monkeypatch):
 
 def cfg_pretrain(path):
     return load_config(path).pretrain
-
-
-def test_train_cli_refuses_several_devices(tiny):
-    with pytest.raises(NotImplementedError, match='DDP'):
-        train_cli.main([tiny[1], '--device', 'cpu', '--num-devices', '2'])
