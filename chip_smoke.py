@@ -144,7 +144,9 @@ peak-memory counter reset.  Phase 2 also records the ++ S3DIS and ++
 STPLS3D requests (K1, K2, K4 and K3 int64 at their shapes; STPLS3D's K1
 and K4 16 wide), one STPLS3D train step (K5 16 wide), the
 ``exact_ball_query`` request (its K2 candidate gather) and one KITTI CLI
-step, and holds each of those calls to its plain version.
+step, and holds each of those calls to its plain version; K2's word route
+is held on the proposal-entry gathers (140-byte rows) of a request and of
+the all-params step, and on the step's backward cotangent gather.
 The line before the last is one JSON object of per-kernel numbers; the last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -322,9 +324,9 @@ def main() -> int:
         from softgroup_tpu_torch.tools_impl import train_cli
         from softgroup_tpu_torch.time_kernels import (
             Recorder, bound, cell_join_bound, cuda_ms, device_reading,
-            dw_bound, host_us, k4_args, k5_args, k6_trained_fill,
-            k7_trained_fill, nbytes, pick, reading_text, request_args,
-            rules_bound, segsum_bound)
+            dw_bound, gather_bound, host_us, k4_args, k5_args,
+            k6_trained_fill, k7_trained_fill, nbytes, pick, reading_text,
+            request_args, rules_bound, segsum_bound)
     except ImportError as e:
         print(f'chip_smoke: the port is not importable here: {e}',
               file=sys.stderr)
@@ -556,7 +558,8 @@ def main() -> int:
     with Recorder([(sparse_conv, 'rulebook_conv_dw'),
                    (gk, 'sorted_segment_sum'),
                    (rulebook, 'sorted_key_rules_join'),
-                   (grouping, 'cell_neighbor_join')]) as trec:
+                   (grouping, 'cell_neighbor_join'),
+                   (gk, 'row_gather')]) as trec:
         logs = state.step(train_batches[0][0],
                           generator=torch.Generator().manual_seed(0))
         torch.cuda.synchronize()
@@ -615,8 +618,6 @@ def main() -> int:
 
     def gather_case(label, args, path='serving'):
         src, idx = args
-        byts = nbytes(src, idx) + idx.shape[0] * src[0].numel() \
-            * src.element_size()
         idx_l = idx.long().clamp(0, src.shape[0] - 1)
         cases.append(dict(
             name=f'K2 row_gather {label}', key='row_gather', path=path,
@@ -627,8 +628,7 @@ def main() -> int:
             plain=lambda: gk.row_gather_plain(src, idx),
             library=lambda: torch.index_select(src, 0, idx_l),
             tol_rel=0.0, reason='a copy: exact',
-            bound=bound(byts, 0.0, src.dtype if src.is_floating_point()
-                        else torch.float32)))
+            bound=gather_bound(src, idx)))
 
     gather_case('devoxelize (V0, 32) bf16', pick(
         gather_calls, lambda a, k: a[0].dtype == torch.bfloat16
@@ -639,6 +639,27 @@ def main() -> int:
     gather_case('cell labels (m+1,) int32', pick(
         gather_calls, lambda a, k: a[0].dim() == 1
         and a[0].shape[0] == caps.grouping_cells + 1, 'label gather')[0])
+    # the word route: the proposal-entry gather of clusters_voxelization
+    # (coordinates + 32 features, 140-byte f32 rows) in the request and in
+    # the all-params step, and the step's backward gather of its cotangent
+    # rows into the sorted index's order (seeded values: with random
+    # weights the recorded cotangent is zero or nearly so)
+    src, idx = pick(gather_calls, lambda a, k: a[0].dtype == torch.float32
+                    and a[0].shape[1:] == (35,), 'proposal-entry gather')[0]
+    gather_case(f'proposal entries ({src.shape[0]}, 35) f32 -> '
+                f'E={idx.shape[0]}', (src, idx))
+    src, idx = pick(trec.calls['row_gather'], lambda a, k: a[0].shape
+                    == (tcaps.points, 35), 'train proposal-entry gather')[0]
+    gather_case(f'train proposal entries ({src.shape[0]}, 35) f32 -> '
+                f'E={idx.shape[0]}', (src, idx), 'train_all')
+    src, idx = pick(trec.calls['row_gather'], lambda a, k: a[0].shape
+                    == (tcaps.proposal_entries, 35)
+                    and a[1].dtype == torch.int64, 'train cotangent gather')[0]
+    gen = torch.Generator(device=dev).manual_seed(36)
+    gather_case(f'train backward cotangent ({src.shape[0]}, 35) f32 into '
+                f'sorted order, seeded values', (torch.randn(
+                    src.shape, generator=gen, device=dev), idx), 'train_all')
+    del src, idx
 
     def join_case(args, path, tag=''):
         keys, cen, cc, dims, offs, radius = args
@@ -2773,17 +2794,24 @@ def kitti_train_root(root: str) -> str:
     return path
 
 
-def host_batch(cfg_path: str):
+def host_batch(cfg_path: str, seed: int | None = None):
     """The first training batch of a yaml, built in this process as a
     loader worker builds it (load, augment, collate, padded batch + host
     pyramid; epoch 1's sampler order); returns (the SceneBatch on the host,
-    the capacities)."""
+    the capacities).  The augmentation draws from ``seed``, by default a
+    fresh one, printed, so a run that fails on one draw can be replayed."""
+    import numpy as np
+
     from softgroup_tpu_torch.data import EpochSampler, build_dataset
     from softgroup_tpu_torch.tools_impl import train_cli
     from softgroup_tpu_torch.util.config import load_config
     cfg = load_config(cfg_path)
     caps = train_cli.caps_from_cfg(cfg)
     ds = build_dataset(cfg.data.train)
+    if seed is None:
+        seed = int(np.random.SeedSequence().generate_state(1)[0])
+        log(f'[warmup] {cfg_path}: the batch\'s augmentation seed {seed}')
+    ds.rng = np.random.RandomState(seed)
     idx = EpochSampler(len(ds)).indices(1)[:cfg.dataloader.train.batch_size]
     post = train_cli.make_post(caps, cfg.tpu.num_levels,
                                cfg.model.ignore_label,
@@ -3081,6 +3109,35 @@ def ddp_phase(card: str) -> dict:
     return recs[2, 0]['counts']
 
 
+# the (r1, r2) draws of the random quantization in cli_positive_check
+CLI_POSITIVE_RAND = ((0.25, 0.5, 0.75), (0.6, 0.3, 0.9))
+
+
+def instance_proposals(batch, caps):
+    """The batch's instances as proposals (``sg.Proposals`` on the host):
+    each valid instance point an entry of its instance's proposal, entries
+    sorted by proposal, up to the capacities."""
+    import torch
+
+    from softgroup_tpu_torch.model import softgroup as sg
+    p_max, s_cap = caps.proposals, caps.proposal_entries
+    inst = batch.instance_labels
+    valid = batch.pyramid.point_valid & (inst >= 0)
+    pts = torch.nonzero(valid).reshape(-1)
+    ids, seg = torch.unique(inst[pts], return_inverse=True)
+    keep = seg < p_max
+    pts, seg = pts[keep], seg[keep]
+    order = torch.argsort(seg, stable=True)[:s_cap]
+    pts, seg = pts[order].to(torch.int32), seg[order].to(torch.int32)
+    n_prop = min(len(ids), p_max)
+    pad = s_cap - len(pts)
+    return sg.Proposals(
+        torch.cat([pts, pts.new_zeros(pad)]),
+        torch.cat([seg, seg.new_full((pad,), p_max)]),
+        torch.arange(s_cap) < len(pts),
+        torch.tensor(n_prop, dtype=torch.int32), torch.arange(p_max) < n_prop)
+
+
 def cli_positive_check(cfg_path: str, batch, dev) -> None:
     """Stage 2's refinement at the train CLI's capacities on its positive
     branch: the CLI batch's instances as the proposals (each one a
@@ -3088,7 +3145,8 @@ def cli_positive_check(cfg_path: str, batch, dev) -> None:
     the yaml's (r1, r2) draws fixed; ``clusters_voxelization`` ->
     ``instance_head`` -> ``instance_loss`` -> backward on the CPU (plain
     versions) and on the card (f32, each ReLU put on the CPU's side of 0:
-    ``AlignedReLU``).  Holds the losses within 1e-4 relative, ``num_pos``
+    ``AlignedReLU``).  Holds every entry's proposal voxel equal, the
+    losses within 1e-4 relative, ``num_pos``
     equal and > 0, and each gradient leaf (and the features' gradient)
     within 1e-3 of its CPU max (f32 sums over up to 131072 voxel rows in
     another order, through the tiny U-Net's ten convs and batch norms)."""
@@ -3101,25 +3159,12 @@ def cli_positive_check(cfg_path: str, batch, dev) -> None:
     cfg = load_config(cfg_path)
     caps = train_cli.caps_from_cfg(cfg)
     p_max, s_cap = caps.proposals, caps.proposal_entries
-    inst = batch.instance_labels
-    valid = batch.pyramid.point_valid & (inst >= 0)
-    pts = torch.nonzero(valid).reshape(-1)
-    ids, seg = torch.unique(inst[pts], return_inverse=True)
-    keep = seg < p_max
-    pts, seg = pts[keep], seg[keep]
-    order = torch.argsort(seg, stable=True)[:s_cap]
-    pts, seg = pts[order].to(torch.int32), seg[order].to(torch.int32)
-    n_prop = min(len(ids), p_max)
-    pad = s_cap - len(pts)
-    props = sg.Proposals(
-        torch.cat([pts, pts.new_zeros(pad)]),
-        torch.cat([seg, seg.new_full((pad,), p_max)]),
-        torch.arange(s_cap) < len(pts), torch.tensor(n_prop,
-                                                     dtype=torch.int32),
-        torch.arange(p_max) < n_prop)
+    props = instance_proposals(batch, caps)
+    n_prop, n_entries = int(props.n_proposals), int(props.entry_valid.sum())
     g = torch.Generator().manual_seed(3)
-    feats = torch.randn((inst.shape[0], cfg.model.channels), generator=g)
-    rand = torch.tensor([[0.25, 0.5, 0.75], [0.6, 0.3, 0.9]])
+    feats = torch.randn((batch.instance_labels.shape[0],
+                         cfg.model.channels), generator=g)
+    rand = torch.tensor(CLI_POSITIVE_RAND)
     res = {}
     for d in ('cpu', dev):
         net = entry.build_net(cfg.model, seed=0, device=d, bf16=False)
@@ -3146,9 +3191,10 @@ def cli_positive_check(cfg_path: str, batch, dev) -> None:
             grads=dict({k: p.grad.cpu().double() for k, p in
                         net.named_parameters() if p.grad is not None},
                        feats=f.grad.cpu().double()),
-            relu=relu.seen, flips=(relu.flips, relu.worst))
+            relu=relu.seen, flips=(relu.flips, relu.worst), p2v=p2v.cpu())
         del net, b, f, pr, vox_feats, levels, cls, iou, mask, total
     c, a = res['cpu'], res[dev]
+    apart = int((a['p2v'] != c['p2v']).sum())
     loss_err = max(abs(a['logs'][k] - v) / max(abs(v), 1e-12)
                    for k, v in c['logs'].items())
     worst = max((float((a['grads'][k] - v).abs().max())
@@ -3157,8 +3203,9 @@ def cli_positive_check(cfg_path: str, batch, dev) -> None:
     flips, kink = a['flips']
     log(f'[cli-positive] stage 2\'s refinement at the train CLI\'s caps '
         f'(proposal_entries {s_cap}, inst_voxels {list(caps.inst_voxels)}) '
-        f'on the batch\'s {n_prop} instances as proposals ({len(pts)} '
-        f'entries), f32, card vs CPU: num_pos {a["logs"]["num_pos"]:.0f} vs '
+        f'on the batch\'s {n_prop} instances as proposals ({n_entries} '
+        f'entries), f32, card vs CPU: entries in another proposal voxel '
+        f'{apart}, num_pos {a["logs"]["num_pos"]:.0f} vs '
         f'{c["logs"]["num_pos"]:.0f}, mask_loss '
         f'{c["logs"]["mask_loss"]:.6g}, max rel loss err {loss_err:.3g} (tol '
         f'1e-4), worst gradient gap / leaf max {worst[0]:.3g} ({worst[1]}; '
@@ -3168,6 +3215,9 @@ def cli_positive_check(cfg_path: str, batch, dev) -> None:
             == c['logs']['num_pos'] and c['logs']['mask_loss'] > 0):
         raise RuntimeError('the positive branch at the CLI caps: no or '
                            'unequal positives')
+    if apart:
+        raise RuntimeError('card and CPU voxelize the proposals apart at '
+                           'the CLI caps')
     if loss_err > 1e-4 or worst[0] > 1e-3 or kink > KINK_BOUND:
         raise RuntimeError('card and CPU disagree on the refinement\'s '
                            'positive branch at the CLI caps')

@@ -11,26 +11,45 @@
 // bytes.
 //
 // Bound on the H100: bytes only (one read of the indices and gathered rows,
-// one write of the output).  The sources on the main path are small (64 KB
-// of cell labels, a few MB of voxel features) and stay in L2, so a gather
-// costs its launch plus the instructions and memory transactions of each
-// thread; the design cuts both:
-//   * rows of 1, 2, 4 or 8 bytes (the int32 cell labels, the top_c gather):
-//     a thread writes the 16 bytes of 16 / row_bytes consecutive output
-//     rows.  It reads their indices with 16-byte loads, the rows with
-//     read-only loads from the cached table, and stores one 16-byte vector;
-//     the ragged tail and unaligned indices take a scalar loop;
-//   * wider rows: one thread per 16-byte vector of an output row (devoxelize's
-//     64-byte rows, the (P, 4) f32 entries), or per 4-, 2- or 1-byte word
-//     where the row size or a pointer does not allow 16; neighbouring
-//     threads copy neighbouring vectors, so a 64-byte row is one
-//     transaction.  The row of a thread is a shift of its index when the
-//     vectors per row are a power of two, else one 32-bit division;
-//   * all index math is 32-bit (the launcher refuses a launch whose thread
-//     count does not fit), and the indices are read as int32 or int64 as
-//     given, so the caller casts nothing.
-// Clamping matches the reference's gather semantics and keeps every read in
-// bounds.
+// one write of the output).  Three routes, by row bytes and alignment:
+//   * narrow: rows of 1, 2, 4 or 8 bytes (the int32 cell labels, the top_c
+//     gather).  The sources are small (64 KB of cell labels) and stay in
+//     L2, so a gather costs its launch and each thread's instructions: a
+//     thread writes the 16 bytes of 16 / row_bytes consecutive output rows,
+//     reading their indices with 16-byte loads, the rows with read-only
+//     loads from the cached table, and storing one 16-byte vector; the
+//     ragged tail and unaligned indices take a scalar loop;
+//   * 16-byte: rows a multiple of 16 bytes on an aligned source
+//     (devoxelize's 64-byte rows, the (P, 4) f32 entries): one thread per
+//     16-byte vector of an output row, neighbouring threads on neighbouring
+//     vectors, so a 64-byte row is one transaction; the row of a thread is
+//     a shift of its index where the vectors a row are a power of two;
+//   * word: every other row (12-byte ball candidates, 72- and 92-byte ++
+//     heads, 76- and 140-byte proposal entries, 18- to 38-byte bf16 mask
+//     scores, any row on a source view off alignment).  These gathers are
+//     large (up to 510 MB out) and bound by the output's writes and the
+//     index's reads.  A first design, one thread a 4-byte word that
+//     reloaded its row's index, divided by the words a row and stored 4
+//     bytes, lost to index_select.  Here a block owns a tile of 8 or 16
+//     KB of output (word_tile: rows of any width, the first and last ones
+//     maybe in part).  It reads the indices of the tile's rows once,
+//     coalesced and clamped, into shared memory.  Its threads then load
+//     the tile's words, each a W-byte word (W = 8, 4, 2 or 1: the widest
+//     that divides the row bytes and the source's alignment), 8 to 32
+//     words a thread, all in flight before the first is stored to a
+//     shared-memory image of the tile.  A word's row is a multiply-high by
+//     a reciprocal computed once a launch, with one correction step: exact
+//     for every 32-bit word position.  The image goes out as coalesced
+//     16-byte stores (the output is 16-byte aligned, as torch.empty gives
+//     it, and a tile starts on a multiple of its size), the last tile's
+//     ragged end in W-byte words.  Likely what is left of the bound (not
+//     measured: the card's sandbox runs no ncu): the source's reads, where
+//     a 12-byte row costs a whole 32-byte L2 sector, two where it
+//     straddles one.
+// All index math is 32-bit where it can be (the launcher refuses an output
+// of 2^31 bytes or more), and the indices are read as int32 or int64 as
+// given, so the caller casts nothing.  Clamping matches the reference's
+// gather semantics and keeps every read in bounds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -47,12 +66,12 @@ __device__ __forceinline__ long long clamp_row(I j, int n_src) {
   return j < 0 ? 0 : (j >= (I)n_src ? n_src - 1 : (long long)j);
 }
 
-// one thread per V-sized vector of an output row
-template <typename V, typename I, bool POW2>
-__global__ void row_gather_vec(const V* __restrict__ src,
+// one thread per 16-byte vector of an output row
+template <typename I, bool POW2>
+__global__ void row_gather_vec(const uint4* __restrict__ src,
                                const I* __restrict__ idx, int n_src,
                                int total, int vec_per_row, int shift,
-                               V* __restrict__ out) {
+                               uint4* __restrict__ out) {
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= total) return;
   const int i = POW2 ? t >> shift : t / vec_per_row;
@@ -98,22 +117,111 @@ __global__ void row_gather_narrow(const E* __restrict__ src,
 
 constexpr int GATHER_NT = 256;
 
-template <typename V, typename I>
+// the word route: threads a block, and output bytes a block for W-byte
+// words (a multiple of 16 and of 256 W): 16 KB of 4- or 8-byte words, 8 KB
+// of 2- or 1-byte words (timed on the H100: 16 KB tiles are faster than 8
+// KB for 4-byte words and slower for 2-byte ones, 32 a thread)
+constexpr int WORD_NT = 256;
+__host__ __device__ constexpr int word_tile(int w) {
+  return w >= 4 ? 16384 : 8192;
+}
+
+// floor(p / d) for any 32-bit p and d >= 2, with m = floor(2^32 / d): the
+// multiply-high is q or q - 1, and one step corrects it
+__device__ __forceinline__ unsigned div_rcp(unsigned p, unsigned d,
+                                            unsigned m) {
+  unsigned q = __umulhi(p, m);
+  if (p - q * d >= d) ++q;
+  return q;
+}
+
+// block b writes output bytes [b * TILE, ...) (TILE = word_tile(W)):
+// W-byte words, wpr of them a row (wpr >= 2 on this route), m = floor(2^32
+// / wpr).  Shared memory: the tile's image (TILE bytes), then the clamped
+// source row of each output row the tile touches (TILE / W / wpr + 2 at
+// most)
+template <typename W, typename I>
+__global__ void __launch_bounds__(WORD_NT)
+row_gather_words(const W* __restrict__ src, const I* __restrict__ idx,
+                 int n_src, unsigned total_words, unsigned wpr, unsigned m,
+                 uint4* __restrict__ out) {
+  constexpr int TILE = word_tile(sizeof(W));
+  constexpr int TW = TILE / sizeof(W);        // words a tile
+  constexpr int U = TW / WORD_NT;             // words a thread
+  extern __shared__ __align__(16) char smem[];
+  W* image = reinterpret_cast<W*>(smem);
+  int* rows = reinterpret_cast<int*>(smem + TILE);
+  const int t = threadIdx.x;
+  const unsigned w0 = blockIdx.x * (unsigned)TW;   // the tile's first word
+  const int nw = (int)min((unsigned)TW, total_words - w0);
+  const unsigned r0 = div_rcp(w0, wpr, m);         // its first row
+  const unsigned c0 = w0 - r0 * wpr;               // and word in that row
+  const int n_rows = (int)div_rcp(c0 + nw - 1, wpr, m) + 1;
+  for (int r = t; r < n_rows; r += WORD_NT)
+    rows[r] = (int)clamp_row(__ldg(idx + r0 + r), n_src);
+  __syncthreads();
+  W v[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int w = t + u * WORD_NT;
+    if (w < nw) {
+      const unsigned p = c0 + w;
+      const unsigned q = div_rcp(p, wpr, m);
+      v[u] = __ldg(src + (long long)rows[q] * wpr + (p - q * wpr));
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int w = t + u * WORD_NT;
+    if (w < nw) image[w] = v[u];
+  }
+  __syncthreads();
+  const int bytes = nw * (int)sizeof(W);
+  uint4* o = out + (size_t)blockIdx.x * (TILE / 16);
+  const uint4* img = reinterpret_cast<const uint4*>(smem);
+  for (int j = t; j < bytes / 16; j += WORD_NT) o[j] = img[j];
+  // the last tile's bytes past its last 16-byte word, in W-byte words
+  const int done = bytes / 16 * 16 / (int)sizeof(W);
+  if (t < nw - done)
+    reinterpret_cast<W*>(o + bytes / 16)[t] = image[done + t];
+}
+
+template <typename I>
 int launch_vec(const void* src, const I* idx, int n_src, int n_out,
                long long row_bytes, void* out, cudaStream_t stream) {
-  const long long vpr = row_bytes / (long long)sizeof(V);
+  const long long vpr = row_bytes / 16;
   const long long total = (long long)n_out * vpr;
   if (total > INT_MAX) return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((total + GATHER_NT - 1) / GATHER_NT);
   if ((vpr & (vpr - 1)) == 0) {
     int shift = 0;
     while ((1LL << shift) < vpr) ++shift;
-    row_gather_vec<V, I, true><<<blocks, GATHER_NT, 0, stream>>>(
-        (const V*)src, idx, n_src, (int)total, (int)vpr, shift, (V*)out);
+    row_gather_vec<I, true><<<blocks, GATHER_NT, 0, stream>>>(
+        (const uint4*)src, idx, n_src, (int)total, (int)vpr, shift,
+        (uint4*)out);
   } else {
-    row_gather_vec<V, I, false><<<blocks, GATHER_NT, 0, stream>>>(
-        (const V*)src, idx, n_src, (int)total, (int)vpr, 0, (V*)out);
+    row_gather_vec<I, false><<<blocks, GATHER_NT, 0, stream>>>(
+        (const uint4*)src, idx, n_src, (int)total, (int)vpr, 0,
+        (uint4*)out);
   }
+  return (int)cudaGetLastError();
+}
+
+template <typename W, typename I>
+int launch_words(const void* src, const I* idx, int n_src, int n_out,
+                 long long row_bytes, void* out, cudaStream_t stream) {
+  const long long wpr = row_bytes / (long long)sizeof(W);
+  const long long total = (long long)n_out * wpr;
+  if ((long long)n_out * row_bytes > INT_MAX || wpr < 2 || wpr > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const unsigned m = (unsigned)((1ULL << 32) / (unsigned long long)wpr);
+  constexpr int TILE = word_tile(sizeof(W));
+  constexpr long long TW = TILE / sizeof(W);
+  const unsigned blocks = (unsigned)((total + TW - 1) / TW);
+  const int smem = TILE + 4 * (int)(TW / wpr + 2);
+  row_gather_words<W, I><<<blocks, WORD_NT, smem, stream>>>(
+      (const W*)src, idx, n_src, (unsigned)total, (unsigned)wpr, m,
+      (uint4*)out);
   return (int)cudaGetLastError();
 }
 
@@ -133,8 +241,8 @@ int launch_narrow(const void* src, const I* idx, int n_src, int n_out,
 template <typename I>
 int row_gather(const void* src, const I* idx, int n_src, int n_out,
                long long row_bytes, void* out, cudaStream_t s) {
-  const uintptr_t as = (uintptr_t)src, ao = (uintptr_t)out;
-  if (ao % 16 == 0 && row_bytes < 16 && as % row_bytes == 0) {
+  const uintptr_t as = (uintptr_t)src;
+  if (row_bytes < 16 && as % row_bytes == 0) {
     switch (row_bytes) {
       case 1: return launch_narrow<uint8_t, I>(src, idx, n_src, n_out, out, s);
       case 2: return launch_narrow<uint16_t, I>(src, idx, n_src, n_out, out, s);
@@ -143,14 +251,20 @@ int row_gather(const void* src, const I* idx, int n_src, int n_out,
       default: break;
     }
   }
-  const uintptr_t align = as | ao;
-  if (row_bytes % 16 == 0 && align % 16 == 0)
-    return launch_vec<uint4, I>(src, idx, n_src, n_out, row_bytes, out, s);
-  if (row_bytes % 4 == 0 && align % 4 == 0)
-    return launch_vec<uint32_t, I>(src, idx, n_src, n_out, row_bytes, out, s);
-  if (row_bytes % 2 == 0 && align % 2 == 0)
-    return launch_vec<uint16_t, I>(src, idx, n_src, n_out, row_bytes, out, s);
-  return launch_vec<uint8_t, I>(src, idx, n_src, n_out, row_bytes, out, s);
+  if (row_bytes % 16 == 0 && as % 16 == 0)
+    return launch_vec<I>(src, idx, n_src, n_out, row_bytes, out, s);
+  // the word route: the widest word that divides the row and the source's
+  // alignment
+  const uintptr_t g = as | (uintptr_t)row_bytes;
+  if (g % 8 == 0)
+    return launch_words<uint2, I>(src, idx, n_src, n_out, row_bytes, out, s);
+  if (g % 4 == 0)
+    return launch_words<uint32_t, I>(src, idx, n_src, n_out, row_bytes, out,
+                                     s);
+  if (g % 2 == 0)
+    return launch_words<uint16_t, I>(src, idx, n_src, n_out, row_bytes, out,
+                                     s);
+  return launch_words<uint8_t, I>(src, idx, n_src, n_out, row_bytes, out, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -592,13 +706,15 @@ extern "C" int sg_segment_sum(const void* values, const void* seg,
 }
 
 // src (n_src, row_bytes) raw bytes, idx (n_out,) int32 or (idx64) int64 ->
-// out (n_out, row_bytes).  Refused (cudaErrorInvalidValue) when the launch's
-// thread count does not fit in 32 bits.
+// out (n_out, row_bytes), 16-byte aligned.  Refused (cudaErrorInvalidValue)
+// when out is not 16-byte aligned, or when the launch's thread count or
+// (word route) the output's bytes do not fit in 31 bits.
 extern "C" int sg_row_gather(const void* src, const void* idx, int idx64,
                              int n_src, int n_out, long long row_bytes,
                              void* out, void* stream) {
   if (n_out <= 0 || row_bytes <= 0) return (int)cudaGetLastError();
-  if (n_src <= 0) return (int)cudaErrorInvalidValue;
+  if (n_src <= 0 || (uintptr_t)out % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (idx64)
     return row_gather<long long>(src, (const long long*)idx, n_src, n_out,

@@ -443,7 +443,12 @@ def clusters_voxelization(props: Proposals, feats: torch.Tensor,
     cmin = segment_min(coords, seg, p_max)
     cmax = segment_max(coords, seg, p_max)
     extent = (cmax - cmin).amax(dim=1)
-    clusters_scale = 1.0 / (extent / spatial_shape).clamp(min=1e-12) - 0.01
+    # extent / spatial_shape as a product with the f32 reciprocal, as XLA
+    # and PyTorch's CUDA division by a number compute it (the CPU's true
+    # quotient is an ulp off for ~20% of extents, enough to floor a point
+    # on a cell's edge into the next voxel on one device only)
+    inv_shape = float(np.float32(1.0) / np.float32(spatial_shape))
+    clusters_scale = 1.0 / (extent * inv_shape).clamp(min=1e-12) - 0.01
     clusters_scale = clusters_scale.clamp(max=scale)
 
     cmin_s = cmin * clusters_scale[:, None]

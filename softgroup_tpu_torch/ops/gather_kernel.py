@@ -5,15 +5,19 @@ K2 replaces ``softgroup_tpu/ops/gather_kernel.py:_gather_kernel`` (driven
 by ``monotone_row_gather`` / ``monotone_gather_f32``).  On the main path it
 carries devoxelize (voxel features back to points), the grouping entry
 gather and the cell-label gather, plus the proposal-entry gather of
-``clusters_voxelization``.  The copy moves raw bytes, so it is exact for
-every dtype and needs no monotone indices.  It is bound by bytes on the
-H100, but its sources sit in L2 and its calls are short, so what it costs
-is the launch, the wrapper's host time and each thread's instructions: rows
-narrower than 16 bytes (the int32 cell labels) go 16 output bytes to a
-thread, wider rows one 16-byte vector to a thread, with 32-bit index math
-and the indices read as int32 or int64 as given (design note:
-``csrc/gather.cu``).  The wrapper casts nothing, builds no view and looks
-its C entry point up once.
+``clusters_voxelization``, the ++ heads, ``exact_ball_query``'s candidate
+gather and the backward's cotangent gather.  The copy moves raw bytes, so
+it is exact for every dtype and needs no monotone indices.  It is bound by
+bytes on the H100 and takes one of three routes by row bytes and alignment
+(design note: ``csrc/gather.cu``): rows of 1-8 bytes (the int32 cell
+labels) go 16 output bytes to a thread; rows a multiple of 16 bytes one
+16-byte vector to a thread; every other row (12-, 38-, 72-, 76-, 92-,
+140-byte rows) takes the word route, where a block stages 8 or 16 KB of
+output in shared memory from its rows' indices, read once, and writes it
+with 16-byte stores.  Index math is 32-bit and the indices are read as
+int32 or int64 as given.  The wrapper casts nothing, builds no view and
+looks its C entry point up once; an empty index gives an empty output
+without a launch.
 
 K6 ``sorted_segment_sum`` replaces ``gather_kernel.py:_segsum_kernel``
 (driven by ``monotone_segment_sum``): the backward of ``gather_rows``, the
@@ -75,6 +79,8 @@ def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise ValueError('row_gather: over 2 GiB of output or 2^31 source '
                          'rows: the kernel indexes in 32 bits')
     out = torch.empty((n_out,) + tail, dtype=src.dtype, device=src.device)
+    if out.numel() == 0:
+        return out
     rc = kernels.entry('gather', 'sg_row_gather')(
         src.data_ptr(), idx.data_ptr(), idx.dtype == torch.int64, n_src,
         n_out, row_bytes, out.data_ptr(), kernels.stream(src.device))
@@ -136,6 +142,8 @@ def sorted_segment_sum(values: torch.Tensor, seg: torch.Tensor,
     # every row is written by the kernels: no zeroing
     out = torch.empty((num_segments, c), dtype=out_dtype,
                       device=values.device)
+    if out.numel() == 0:
+        return out
     # per chunk: the partial sums of a segment crossing its first and its
     # last row
     parts = torch.empty((2, max(1, -(-n // rows)), c), dtype=torch.float32,

@@ -22,8 +22,17 @@ K5, K6 and K7 call.  Each case is then timed and printed as one line
     ``partial_trace=True`` and left out of every sum and ranking;
   * ms: CUDA events around 10 back-to-back calls of the wrapper, over 10;
   * host_us: the wrapper's CPU time a call, launch included.
-K2's cases add ``library_device_ms`` (``torch.index_select``).  K5 is timed
-as a census: one line per distinct shape (K, V_out, Cin, Cout) of the
+K2's cases add ``library_device_ms`` (``torch.index_select``); with ``k2``,
+K2 is also timed as a census of every ``row_gather`` call on seven paths
+(``k2_paths``: a flagship request, a SoftGroup++ request, an S3DIS room, a
+KITTI sweep, a ++ STPLS3D tile, an ``exact_ball_query`` request and an
+all-params train step, the scans written by ``chip_smoke.py``'s writers):
+one line per distinct call (site, shapes, types, row bytes, route,
+launches on the path, device ms, ``index_select``'s, bound), one summary a
+path (the word route's launches x device ms beside the path's device busy
+time, profiled after every reading), and each ``_GatherRows.backward`` of
+the step timed whole and in its parts (sort, K2 cotangent gather, K6).  K5
+is timed as a census: one line per distinct shape (K, V_out, Cin, Cout) of the
 step's calls with its launches, share of rules that hit, ``device_ms``, the
 bound (``dw_bound``) and the error against the plain version, then the
 shapes ranked by launches x ``device_ms``.  K4's subm case is timed once
@@ -56,6 +65,9 @@ from __future__ import annotations
 
 import argparse
 import itertools
+import math
+import os
+import sys
 import time
 
 # the profiler's calls a device time is averaged over
@@ -205,11 +217,14 @@ def host_us(fn, reps: int = 20) -> float:
 class Recorder:
     """Wraps the kernel wrappers at their call sites during one run and
     keeps a clone of the arguments of every call (one clone for a tensor
-    passed twice in a call, as K4's subm conv passes its key table)."""
+    passed twice in a call, as K4's subm conv passes its key table).
+    ``note(module, name, args)``, where given, sees each call's arguments
+    as they were passed, before the clone."""
 
-    def __init__(self, sites):
+    def __init__(self, sites, note=None):
         self.sites = sites          # [(module, attribute name)]
         self.calls: dict[str, list] = {}
+        self.note = note
         self._saved = []
 
     def __enter__(self):
@@ -217,7 +232,9 @@ class Recorder:
         for mod, name in self.sites:
             orig = getattr(mod, name)
 
-            def wrapped(*args, _orig=orig, _name=name, **kw):
+            def wrapped(*args, _orig=orig, _name=name, _mod=mod, **kw):
+                if self.note is not None:
+                    self.note(_mod, _name, args)
                 clones = {}
                 keep = [clones.setdefault(id(a), a.detach().clone())
                         if isinstance(a, torch.Tensor) else a for a in args]
@@ -726,6 +743,307 @@ def k7_census(calls: list, lbl: str, card: str, tiles: list,
         jk._K7_TILE = tile0
 
 
+def row_bytes(src) -> int:
+    """The bytes of one row of a K2 source (any trailing shape)."""
+    return math.prod(src.shape[1:]) * src.element_size()
+
+
+def k2_route(src, offset: int) -> str:
+    """The route ``row_gather`` of ``csrc/gather.cu`` takes for ``src``
+    when its first byte lies ``offset`` bytes past 16-byte alignment:
+    ``narrow`` (rows of 1, 2, 4 or 8 bytes on their own alignment),
+    ``16-byte`` (rows a multiple of 16 bytes, aligned) or ``word`` (every
+    other row)."""
+    rb = row_bytes(src)
+    if rb in (1, 2, 4, 8) and offset % rb == 0:
+        return 'narrow'
+    if rb % 16 == 0 and offset == 0:
+        return '16-byte'
+    return 'word'
+
+
+def at_offset(t, offset: int):
+    """``t``, or a copy of it whose first byte lies ``offset`` bytes past
+    16-byte alignment (a recorded call's source view, which its clone
+    lost)."""
+    import torch
+    if offset == 0:
+        return t
+    elt = t.element_size()
+    buf = torch.empty(t.numel() + 32 // elt, dtype=t.dtype, device=t.device)
+    start = (offset - buf.data_ptr() % 16) % 16 // elt
+    out = buf[start:start + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def gather_bound(src, idx):
+    """K2's bound: one read of the index and of each source row it reaches
+    (clamped; a gather reads no other row), one write of the gathered
+    rows."""
+    import torch
+    reached = torch.unique(idx.long().clamp(0, src.shape[0] - 1)).numel()
+    return bound(nbytes(idx) + (reached + idx.shape[0]) * row_bytes(src),
+                 0.0, src.dtype if src.is_floating_point() else torch.float32)
+
+
+class K2Recorder(Recorder):
+    """Records every K2 call of one run at its three call sites, and K6's.
+    For each ``row_gather`` call it notes (in ``k2``, in call order) the
+    site's module, the route its source takes (from the source as passed:
+    a view may be off alignment) with that offset, and whether the call ran
+    inside ``_GatherRows.backward``; each backward's inputs go to
+    ``backwards`` (index, cotangent, source rows, trailing shape, dtype,
+    whether the index was sorted)."""
+
+    def __init__(self):
+        from softgroup_tpu_torch.model import softgroup as sg
+        from softgroup_tpu_torch.ops import gather_kernel as gk
+        from softgroup_tpu_torch.ops import grouping
+        super().__init__([(gk, 'row_gather'), (grouping, 'row_gather'),
+                          (sg, 'row_gather'), (gk, 'sorted_segment_sum')],
+                         note=self._note)
+        self.gk = gk
+        self.k2: list[tuple] = []
+        self.backwards: list[dict] = []
+        self._in_backward = False
+
+    def _note(self, mod, name, args):
+        if name == 'row_gather':
+            src = args[0]
+            off = src.data_ptr() % 16 if src.is_contiguous() else 0
+            self.k2.append((mod.__name__.rsplit('.', 1)[-1],
+                            k2_route(src, off), off, self._in_backward))
+
+    def __enter__(self):
+        super().__enter__()
+        cls = self.gk._GatherRows
+        self._backward = cls.__dict__['backward']
+        orig = cls.backward
+
+        def backward(ctx, g):
+            (idx,) = ctx.saved_tensors
+            self.backwards.append(dict(
+                idx=idx.detach().clone(), g=g.detach().clone(),
+                n_src=ctx.n_src, tail=ctx.tail, dtype=ctx.dtype,
+                sorted_idx=ctx.sorted_idx))
+            self._in_backward = True
+            try:
+                return orig(ctx, g)
+            finally:
+                self._in_backward = False
+        cls.backward = staticmethod(backward)
+        return self
+
+    def __exit__(self, *exc):
+        self.gk._GatherRows.backward = self._backward
+        super().__exit__(*exc)
+
+
+def k2_calls(rec: K2Recorder) -> list[dict]:
+    """The distinct ``row_gather`` calls of a recorded run, in order of
+    first call: site, direction, shapes, types, route and source offset
+    alike; each with its launches in the run and its first call's
+    arguments."""
+    groups: dict[tuple, dict] = {}
+    for (args, _), (site, route, off, bwd) in zip(rec.calls['row_gather'],
+                                                  rec.k2):
+        src, idx = args
+        key = (site, bwd, tuple(src.shape), src.dtype, tuple(idx.shape),
+               idx.dtype, route, off)
+        if key not in groups:
+            groups[key] = dict(site=site, backward=bwd, route=route,
+                               offset=off, args=args, launches=0)
+        groups[key]['launches'] += 1
+    return list(groups.values())
+
+
+def _dtype(t) -> str:
+    return str(t.dtype).split('.')[-1]
+
+
+def k2_census(path: str, rec: K2Recorder, lbl: str, card: str,
+              device_only: bool = False, device: str = 'cuda') -> dict:
+    """Times every distinct K2 call of one recorded run of ``path``: one
+    line each with its site (``backward``: inside ``_GatherRows.
+    backward``), source and index shapes and types, row bytes, route,
+    launches in the run, device ms, ``index_select``'s device ms and the
+    bound, and whether it equals the plain version (at the recorded
+    source's alignment).  Returns the launches and the launches x device
+    ms of the word route and of all K2 calls, for ``k2_summary``."""
+    import torch
+
+    from softgroup_tpu_torch.ops import gather_kernel as gk
+    sums = {'word': [0, 0.0], 'all': [0, 0.0]}
+    for c in k2_calls(rec):
+        src, idx = c['args']
+        src = at_offset(src, c['offset'])
+        rb = row_bytes(src)
+        equal = torch.equal(gk.row_gather(src, idx),
+                            gk.row_gather_plain(src, idx))
+        idx_l = idx.long().clamp(0, src.shape[0] - 1)
+        lib = 'n/a' if device == 'cpu' else reading_text(device_reading(
+            lambda s=src, i=idx_l: torch.index_select(s, 0, i)))
+        b_ms, b_by = gather_bound(src, idx)
+        site = c['site'] + (' backward' if c['backward'] else '')
+        dev = _timed(
+            lbl, f'K2 census {path} {site} src={tuple(src.shape)} '
+            f'{_dtype(src)} idx=({idx.shape[0]},) {_dtype(idx)}',
+            lambda s=src, i=idx: gk.row_gather(s, i), card,
+            f' row_bytes={rb} route={c["route"]} offset={c["offset"]} '
+            f'launches={c["launches"]} library_device_ms={lib} '
+            f'bound_ms={b_ms:.6f} ({b_by}) equal={equal}', device_only)
+        if not equal:
+            raise RuntimeError(f'K2 {path} {site}: differs from plain')
+        for k in ('all', 'word') if c['route'] == 'word' else ('all',):
+            sums[k][0] += c['launches']
+            sums[k][1] += c['launches'] * dev
+    return sums
+
+
+def k2_summary(path: str, sums: dict, busy_ms: float, lbl: str,
+               card: str) -> None:
+    """One path's summary line: the word route's launches x device ms
+    (``k2_census``'s sums), all of K2's, and the path's device busy time
+    (``busy_ms``, one profiled run)."""
+    print(f'time_kernels {lbl} K2 census {path}: {sums["all"][0]} launches '
+          f'({sums["word"][0]} word route), word route launches x '
+          f'device_ms = {sums["word"][1]:.6f} ms, all K2 launches x '
+          f'device_ms = {sums["all"][1]:.6f} ms, path device busy '
+          f'{busy_ms:.6f} ms [{card}]', flush=True)
+
+
+def k2_backward_census(path: str, rec: K2Recorder, lbl: str, card: str,
+                       device: str = 'cuda') -> None:
+    """Times each distinct ``_GatherRows.backward`` call of a recorded run,
+    whole and in its parts: the index's cast, clamp and stable sort, the
+    K2 gather of the cotangent rows into that order (both only for an
+    unsorted index) and K6; one line for the whole with the sum of the
+    parts."""
+    import types
+
+    import torch
+
+    from softgroup_tpu_torch.ops import gather_kernel as gk
+    groups: dict[tuple, list] = {}
+    for b in rec.backwards:
+        key = (tuple(b['g'].shape), b['g'].dtype, tuple(b['idx'].shape),
+               b['idx'].dtype, b['n_src'], b['sorted_idx'])
+        groups.setdefault(key, []).append(b)
+    for bs in groups.values():
+        b = bs[0]
+        idx, g, n_src = b['idx'], b['g'], b['n_src']
+        ctx = types.SimpleNamespace(saved_tensors=(idx,), n_src=n_src,
+                                    tail=b['tail'], dtype=b['dtype'],
+                                    sorted_idx=b['sorted_idx'])
+        out_dtype = b['dtype'] if b['dtype'] in gk._SEG_TYPES \
+            else torch.float32
+        name = (f'K2 census {path} backward g={tuple(g.shape)} {_dtype(g)} '
+                f'idx={_dtype(idx)} n_src={n_src} '
+                f'sorted_idx={b["sorted_idx"]}')
+
+        def segsum(g_, seg):
+            return gk.sorted_segment_sum(g_.reshape(g_.shape[0], -1), seg,
+                                         n_src, out_dtype=out_dtype)
+        parts = []
+        if b['sorted_idx']:
+            seg = idx.to(torch.int32).clamp(0, n_src - 1)
+            g_s = g
+        else:
+            def sort():
+                return torch.sort(idx.to(torch.int32).clamp(0, n_src - 1),
+                                  stable=True)
+            seg, order = sort()
+            g_s = gk.row_gather(g, order)
+            parts += [_timed(lbl, f'{name} cast + clamp + sort', sort, card,
+                             device_only=True),
+                      _timed(lbl, f'{name} K2 gather', lambda:
+                             gk.row_gather(g, order), card,
+                             device_only=True)]
+        parts.append(_timed(lbl, f'{name} K6', lambda: segsum(g_s, seg),
+                            card, device_only=True))
+        _timed(lbl, f'{name} whole',
+               lambda: gk._GatherRows.backward(ctx, g), card,
+               f' launches={len(bs)} sum_of_parts_ms={sum(parts):.6f}',
+               device_only=True)
+
+
+def path_busy_ms(run) -> float:
+    """The card's busy time of one run of ``run`` (every kernel, memset
+    and copy under the profiler)."""
+    return sum(r[0] for r in _profile_rows(run, 1))
+
+
+def _chip_smoke():
+    """The repo root's ``chip_smoke.py`` (its scan writers), also when this
+    file runs as a script on another checkout's package (the root is
+    appended to the path, so that package keeps its place)."""
+    try:
+        import chip_smoke
+    except ImportError:
+        sys.path.append(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        import chip_smoke
+    return chip_smoke
+
+
+def k2_paths(lift):
+    """(name, run) of each path of K2's census, built in turn (a path's
+    scans written to a temp dir, freed before the next): one flagship
+    request (a 250k-point room, seed 0), one SoftGroup++ request (the same
+    room through the runner), one S3DIS room, one KITTI sweep and one ++
+    STPLS3D tile (``chip_smoke.py``'s scans: seeds 300, 400, 500, through
+    the yamls' runners), one ``exact_ball_query`` request (the flagship's)
+    and one all-params train step (4 x 250k-point rooms, seeds 200-203).
+    ``run()`` runs the path's device part once (no host postprocess);
+    each keeps its path's net and batch alive."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.data.synthetic import (collate_scenes,
+                                                    make_room_scene)
+    cs = _chip_smoke()
+
+    def forward(runner, data):
+        batch, caps = runner.build_batch(data)
+        return lambda: runner.forward(batch, caps)
+
+    cfg, caps = entry.flagship_cfg(), entry.bench_capacities()
+    net = lift(entry.build_net(cfg, seed=0))
+    room = make_room_scene(np.random.RandomState(0), n_points=250000,
+                           n_instances=12)
+    batch = entry.build_batch(room, cfg, caps)
+    yield 'request', lambda: entry.infer(net, batch, cfg, caps)
+    pcfg = entry.plus_cfg()
+    data = collate_scenes([room], scale=50.0)
+    data['scan_ids'] = ['room0']
+    yield '++ request', forward(entry.build_runner(
+        lift(entry.build_net(pcfg, seed=0)), pcfg), data)
+    for name, write, lift_ in (
+            ('S3DIS room', cs.s3dis_rooms, lift),
+            ('KITTI sweep', cs.kitti_scans, cs.kitti_lift),
+            ('STPLS3D++ tile', lambda r: cs.stpls3d_split(r)[0], lift)):
+        with tempfile.TemporaryDirectory() as root:
+            scfg = write(root)
+            yield name, forward(entry.build_s3dis_runner(
+                lift_(entry.build_net(scfg.model, seed=0)), scfg),
+                cs.first_scan(scfg))
+    bcfg = cfg.copy()
+    bcfg.grouping_cfg.exact_ball_query = True
+    yield 'ball request', lambda: entry.infer(net, batch, bcfg, caps)
+    tcfg, tcaps = entry.train_cfg(), entry.train_capacities()
+    tbatch = entry.build_train_batch(
+        [make_room_scene(np.random.RandomState(200 + j), n_points=250000,
+                         n_instances=12) for j in range(4)], tcfg, tcaps)
+    state = entry.build_train_state(lift(entry.build_net(tcfg, seed=0)),
+                                    tcfg, tcaps)
+    yield 'train step', lambda: state.step(
+        tbatch, generator=torch.Generator().manual_seed(0))
+
+
 def _timed(label, name, fn, card, extra='', device_only=False):
     """Prints one timed case; returns its device ms, NaN where the trace
     stayed short (so no sum or ranking takes it)."""
@@ -950,6 +1268,24 @@ def main() -> None:
             ck._DW_GROUP, ck._DW_FEW_STEPS = group0, few0
         if fill0 is not None:
             ck._DW_FILL_BLOCKS, ck._DW_WIDE_FILL_BLOCKS = fill0, wide0
+
+    if 'k2' in families:
+        # last, and the paths' busy profiles last of all: after a profile
+        # of a whole train step, every later profile in the process loses
+        # its first kernel record (seen on the H100), cutting each reading
+        done = []
+        for path, run in k2_paths(lift):
+            with K2Recorder() as krec:
+                run()
+                torch.cuda.synchronize()
+            done.append((path, run, k2_census(path, krec, lbl, card,
+                                              args.device_only)))
+            k2_backward_census(path, krec, lbl, card)
+            del krec, run
+            torch.cuda.empty_cache()
+        for path, run, sums in done:
+            k2_summary(path, sums, path_busy_ms(run), lbl, card)
+        del done
 
 
 if __name__ == '__main__':

@@ -117,50 +117,85 @@ def test_row_gather_exact(dev, dtype):
 
 
 def _gather_src(case: str, dev):
+    """(source, output rows) of one K2 card case."""
     g = torch.Generator(device=dev).manual_seed(len(case))
+
+    def f32(n, c, off=0):   # (n, c) f32, ``off`` elements past alignment
+        big = torch.randn(n * c + off, device=dev, generator=g) * 100
+        return big[off:].view(n, c)
+    n_out = 100003
     if case == 'labels int32':       # 1-D, 4-byte rows
-        return torch.randint(-1, 16384, (16385,), device=dev, generator=g,
-                             dtype=torch.int32)
-    if case == 'entries f32':        # (P, 4) f32: 16-byte rows
-        return torch.randn(30000, 4, device=dev, generator=g)
-    if case == 'features bf16':      # (V, 32) bf16: 64-byte rows
-        return torch.randn(20000, 32, device=dev, generator=g).bfloat16()
-    if case == 'bytes uint8':        # 3-byte rows
-        return torch.randint(0, 256, (7000, 3), device=dev, generator=g,
-                             dtype=torch.uint8)
-    if case == 'top_c int64':        # 1-D, 8-byte rows
-        return torch.randint(-5, 20, (9000,), device=dev, generator=g)
-    if case == 'unaligned bf16':     # a view 2 bytes off 16-byte alignment
+        src = torch.randint(-1, 16384, (16385,), device=dev, generator=g,
+                            dtype=torch.int32)
+    elif case == 'entries f32':      # (P, 4) f32: 16-byte rows
+        src = torch.randn(30000, 4, device=dev, generator=g)
+    elif case == 'features bf16':    # (V, 32) bf16: 64-byte rows
+        src = torch.randn(20000, 32, device=dev, generator=g).bfloat16()
+    elif case == 'bytes uint8':      # 3-byte rows
+        src = torch.randint(0, 256, (7000, 3), device=dev, generator=g,
+                            dtype=torch.uint8)
+    elif case == 'top_c int64':      # 1-D, 8-byte rows
+        src = torch.randint(-5, 20, (9000,), device=dev, generator=g)
+    elif case == 'unaligned bf16':   # a view 2 bytes off 16-byte alignment
         big = torch.randn(20000 * 32 + 1, device=dev, generator=g)
-        return big.bfloat16()[1:].view(20000, 32)
-    if case == 'unaligned int32':    # 1-D, 4 bytes off
-        return torch.arange(16386, device=dev, dtype=torch.int32)[1:]
-    raise ValueError(case)
+        src = big.bfloat16()[1:].view(20000, 32)
+    elif case == 'unaligned int32':  # 1-D, 4 bytes off
+        src = torch.arange(16386, device=dev, dtype=torch.int32)[1:]
+    elif case.endswith('-byte') and 'f32' in case:   # 12-, 72-, 76-, 92-
+        src = f32(9000, int(case.split()[2][:-5]) // 4)   # and 140-byte rows
+    elif case == 'word bf16 14-byte':
+        src = f32(9000, 7).bfloat16()
+    elif case == 'word f32 4 bytes off':   # 72-byte rows: 4-byte words
+        src = f32(9000, 18, 1)
+    elif case == 'word f32 8 bytes off':   # 72-byte rows: 8-byte words
+        src = f32(9000, 18, 2)
+    elif case == 'word below one tile':    # 7 rows of 140 bytes
+        src, n_out = f32(500, 35), 7
+    elif case == 'word ragged last tile':  # 92092 bytes: a last tile
+        src, n_out = f32(5000, 23), 1001   # ending inside a 16-byte word
+    elif case == 'empty index':
+        src, n_out = f32(500, 35), 0
+    else:
+        raise ValueError(case)
+    return src, n_out
+
+
+WORD_CASES = ['word f32 12-byte', 'word f32 72-byte', 'word f32 76-byte',
+              'word f32 92-byte', 'word f32 140-byte', 'word bf16 14-byte',
+              'word f32 4 bytes off', 'word f32 8 bytes off',
+              'word below one tile', 'word ragged last tile', 'empty index']
 
 
 @pytest.mark.parametrize('idx_kind', ['int32', 'int64', 'int32 view'])
 @pytest.mark.parametrize('case', ['labels int32', 'entries f32',
                                   'features bf16', 'bytes uint8',
                                   'top_c int64', 'unaligned bf16',
-                                  'unaligned int32'])
+                                  'unaligned int32'] + WORD_CASES)
 def test_row_gather_cases(dev, case, idx_kind):
     """K2 exact against its plain version on every path of the kernel:
     rows of 1-8 bytes (16 output bytes a thread, n_out not a multiple of
     4, so a ragged tail), 16- and 64-byte rows, odd 3-byte rows, unaligned
     sources, int32 / int64 indices and an unaligned index view, with
-    out-of-range indices at both ends (clamped)."""
-    src = _gather_src(case, dev)
+    out-of-range indices at both ends (clamped).  The word route (8 or
+    16 KB output tiles): the paths' 12-, 72-, 76-, 92- and 140-byte f32
+    rows, a 14-byte bf16 row, 72-byte rows 4 and 8 bytes off 16-byte
+    alignment (4- and 8-byte words), fewer rows than a tile, and a last
+    tile that ends inside a 16-byte word; an empty index gives an empty
+    output and launches nothing."""
+    src, n_out = _gather_src(case, dev)
     n = src.shape[0]
     g = torch.Generator(device=dev).manual_seed(7)
-    idx = torch.randint(-50, n + 50, (100003,), device=dev, generator=g)
-    idx[:3] = torch.tensor([-2 ** 40, 2 ** 40, n], device=dev)
+    idx = torch.randint(-50, n + 50, (n_out,), device=dev, generator=g)
+    idx[:3] = torch.tensor([-2 ** 40, 2 ** 40, n], device=dev)[:n_out]
     if idx_kind == 'int32 view':     # 4 bytes off 16-byte alignment
         idx = torch.cat([idx[:1], idx]).to(torch.int32)[1:]
     elif idx_kind == 'int32':
         idx = idx.clamp(-2 ** 31, 2 ** 31 - 1).to(torch.int32)
+    launches = gk.row_gather.launches
     got = gk.row_gather(src, idx)
     assert got.data_ptr() % 16 == 0
     assert torch.equal(got, gk.row_gather_plain(src, idx))
+    assert gk.row_gather.launches == launches + (n_out > 0)
 
 
 def test_cell_join_exact(dev):
@@ -617,6 +652,9 @@ def _segsum_input(case: str, c: int, dtype, dev):
         vals = vals.to(dev).to(dtype)[1:].view(n, c)
         assert vals.data_ptr() % 16 != 0
         return vals, torch.from_numpy(seg.astype(np.int32)).to(dev), s
+    elif case == 'no rows':     # an empty input: every row of out zero
+        n, s = 0, 300
+        seg = np.zeros(0, np.int64)
     elif case == 'small':       # fewer rows than a chunk, not a multiple
         n, s = rows - (59 if rows > 64 else 7), 300   # of anything;
         # out-of-range rows at both ends
@@ -633,12 +671,14 @@ def _segsum_input(case: str, c: int, dtype, dev):
     (torch.bfloat16, torch.bfloat16)])
 @pytest.mark.parametrize('c', [19, 32, 35, 300, 301])
 @pytest.mark.parametrize('case', ['span', 'chunk edge', 'gaps',
-                                  'out of range', 'unaligned', 'small'])
+                                  'out of range', 'unaligned', 'small',
+                                  'no rows'])
 def test_sorted_segment_sum_cases(dev, case, c, dtype, out_dtype):
     """K6 against its plain version: a run over many chunks, runs ending on
     a chunk edge, empty segments between runs with out's first and last
     rows empty, every row out of range, values off 16-byte alignment (no
-    16-byte column vectors), and fewer rows than a chunk.  The path's
+    16-byte column vectors), fewer rows than a chunk, and no rows at all
+    (the zero fill alone).  The path's
     widths (19, 32, 35) and two over 256 columns: 300 (75 f32 column
     vectors a row) and 301 (one strip a chunk, a thread every 256th
     column); over 256 columns a span is finished by one thread a column.
@@ -661,7 +701,7 @@ def test_sorted_segment_sum_cases(dev, case, c, dtype, out_dtype):
         assert bool((err <= 2.0 ** -8 * want.abs() + 1e-5 * scale).all())
         f32 = gk.sorted_segment_sum(vals, seg, s)
         assert torch.equal(got, f32.to(torch.bfloat16))
-    if case == 'out of range':
+    if case in ('out of range', 'no rows'):
         assert not got.any()
     if case == 'gaps':
         assert not got[:5].any() and not got[-7:].any()

@@ -196,6 +196,82 @@ def test_test_forward_odd_spatial_shape(batches, jax_model, monkeypatch):
                                    err_msg=k)
 
 
+def test_clusters_voxelization_on_cell_edges():
+    """The proposal voxels of ``clusters_voxelization`` equal the
+    reference's (jitted, where XLA divides ``extent / spatial_shape`` as a
+    product with the f32 reciprocal) on proposals whose extent's true f32
+    quotient is an ulp off that product, with points on the cell edges
+    where the two quotients floor apart: p2v and the voxel features exact
+    (each voxel here holds one point)."""
+    from softgroup_tpu.model.softgroup import Proposals as JProposals
+    from softgroup_tpu.model.softgroup import \
+        clusters_voxelization as jax_clusters_voxelization
+    from softgroup_tpu_torch.model import softgroup as sg
+    shape, scale = 20, 50.0
+    f32 = np.float32
+    inv = f32(1) / f32(shape)
+
+    def scales(e):
+        return (f32(1) / (e / f32(shape)) - f32(0.01),
+                f32(1) / (e * inv) - f32(0.01))
+    rs = np.random.RandomState(0)
+    coords, seg, parted = [], [], 0
+    for e in rs.uniform(0.5, 4.0, 512).astype(f32):
+        s_true, s_rec = scales(e)
+        if s_true == s_rec:
+            continue
+        # x where floor(x * scale) parts between the two scales
+        xs = [x for k in range(1, shape) for x in
+              f32(k / s_rec) + f32(k / s_rec) * f32(2 ** -23) * np.arange(
+                  -4, 5, dtype=f32)
+              if 0 < x < e and np.floor(x * s_true) != np.floor(x * s_rec)]
+        if not xs:
+            continue
+        p = len(set(seg)) if seg else 0
+        pts = [(0, 0, 0), (e, 0, 0)] + [(x, 0, 0) for x in xs[:2]]
+        coords += pts
+        seg += [p] * len(pts)
+        parted += len(xs[:2])
+        if p + 1 == 16:
+            break
+    assert parted >= 16
+    n, p_max, s_cap = len(coords), 16, 128
+    coords = np.asarray(coords, f32)
+    feats = rs.standard_normal((n, 8)).astype(f32)
+    entry_pt = np.zeros(s_cap, np.int32)
+    entry_pt[:n] = np.arange(n)
+    entry_seg = np.full(s_cap, p_max, np.int32)
+    entry_seg[:n] = seg
+    valid = np.arange(s_cap) < n
+    caps = dict(CAPS, inst_voxels=(128, 64))
+
+    def props(m, t):
+        return m(t(entry_pt), t(entry_seg), t(valid), t(np.int32(p_max)),
+                 t(np.ones(p_max, bool)))
+    ref = jax.jit(lambda pr, f, c: jax_clusters_voxelization(
+        pr, f, c, scale, shape, JCaps(**caps)))(
+        props(JProposals, jnp.asarray), jnp.asarray(feats),
+        jnp.asarray(coords))
+    out = sg.clusters_voxelization(
+        props(sg.Proposals, torch.as_tensor), torch.from_numpy(feats),
+        torch.from_numpy(coords), scale, shape, Capacities(**caps))
+    np.testing.assert_array_equal(out[2].numpy(), np.asarray(ref[2]))
+    np.testing.assert_array_equal(out[0].numpy(), np.asarray(ref[0]))
+    # voxel_parity's cells: the product's cells are the port's voxels, and
+    # the true quotient moves exactly the edge points
+    from softgroup_tpu_torch.voxel_parity import cells
+    tp, xyz = props(sg.Proposals, torch.as_tensor), torch.from_numpy(coords)
+    no_rand = torch.zeros((2, 3))
+    prod = cells(tp, xyz, scale, shape, no_rand, False)[:n].long()
+    quot = cells(tp, xyz, scale, shape, no_rand, True)[:n].long()
+    assert int((prod != quot).any(dim=1).sum()) == parted
+    key = torch.as_tensor(seg) * shape ** 3 + (
+        prod * torch.tensor([shape ** 2, shape, 1])).sum(dim=1)
+    p2v = out[2][:n].long()
+    assert len(torch.unique(key)) == len(torch.unique(p2v)) == len(
+        torch.unique(key * caps['inst_voxels'][0] + p2v))
+
+
 def test_get_instances_matches(forwards, batches):
     out, _ = forwards
     tb, _ = batches
