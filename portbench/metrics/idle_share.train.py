@@ -1,0 +1,8 @@
+"""Share of the traced stretch of train steps with nothing running on the
+card, in %."""
+
+
+def read(trace):
+    if trace.window_s <= 0 or trace.busy_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s / trace.window_s)
