@@ -2902,6 +2902,7 @@ def ddp_rank(rank: int, world: int, backend: str, init_method: str,
     from softgroup_tpu_torch.time_kernels import kernel_rows
     from softgroup_tpu_torch.tools_impl.train_cli import QUANT_SEED
     from softgroup_tpu_torch.train import set_train_modes
+    from softgroup_tpu_torch.util import trace
     from torch.autograd import DeviceType
     warnings.filterwarnings('ignore', message='.*deterministic.*')
     torch.cuda.set_device(0)
@@ -3004,15 +3005,16 @@ def ddp_rank(rank: int, world: int, backend: str, init_method: str,
         rec['step_ms'] = step_ms
         rec['step_ms_median'] = statistics.median(step_ms)
         rec['logs'] = {k: float(v) for k, v in logs.items()}
-        with tprofile(activities=[ProfilerActivity.CPU,
-                                  ProfilerActivity.CUDA]) as prof:
+        with trace.session(), tprofile(
+                activities=[ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
             state.step(batch, rand=rands[-1])
             torch.cuda.synchronize()
         if world > 1:
             rec['replica_diff'].append(replicas())
-        ranges = {ev.key: ev.cpu_time_total / 1e3
+        ranges = {ev.key[len(trace.PREFIX):]: ev.cpu_time_total / 1e3
                   for ev in prof.key_averages()
-                  if ev.key.startswith('ddp.')
+                  if ev.key.startswith(trace.PREFIX + 'ddp.')
                   and ev.device_type == DeviceType.CPU}
         rows = kernel_rows(prof)
         rec['profile'] = dict(

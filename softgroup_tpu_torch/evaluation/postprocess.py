@@ -14,11 +14,15 @@ from __future__ import annotations
 import numpy as np
 
 from ..util.rle import rle_decode, rle_encode
+from ..util.trace import count, span
 
 
 def to_numpy(out: dict) -> dict:
     """Device outputs -> numpy (one host copy per array)."""
-    return {k: v.detach().cpu().numpy() for k, v in out.items()}
+    with span('postprocess.to_numpy'):
+        host = {k: v.detach().cpu().numpy() for k, v in out.items()}
+        count('copy_out.bytes', sum(a.nbytes for a in host.values()))
+    return host
 
 
 def get_instances(scan_id: str, out: dict, n_points: int, cfg,

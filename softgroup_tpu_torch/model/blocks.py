@@ -21,6 +21,7 @@ from torch import nn
 from ..ops.conv_kernel import keyed_conv
 from ..ops.geometry import LevelGeom
 from ..ops.sparse_conv import down_conv, inverse_conv, linear, subm_conv
+from ..util.trace import traced
 
 
 def _uniform(shape, bound, generator):
@@ -51,6 +52,7 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer('mean', torch.zeros(features))
         self.register_buffer('var', torch.ones(features))
 
+    @traced('bn')
     def forward(self, x: torch.Tensor,
                 mask: torch.Tensor | None = None) -> torch.Tensor:
         xf = x.float()

@@ -30,6 +30,7 @@ from ..ops.segment import (segment_max, segment_mean, segment_mean_fused,
 from ..ops.voxelize import (compact_ascending, devoxelize, voxel_features,
                             voxelize_linear)
 from ..util.config import getattr_or
+from ..util.trace import traced
 from .blocks import MLP, Dense, MaskedBatchNorm, SubMConv, UBlock
 
 INT_MAX = 2 ** 31 - 1
@@ -134,6 +135,7 @@ class SoftGroupNet(nn.Module):
         x = self.unet(x, pyramid.levels)
         return torch.relu(self.output_norm(x, lv0.vox_valid))
 
+    @traced('model.backbone')
     def backbone(self, x: torch.Tensor, pyramid: Pyramid):
         """input_conv -> UBlock -> BN/ReLU -> devoxelize -> point heads.
         ``x`` is the voxel-level input (V0, C_in)."""
@@ -143,6 +145,7 @@ class SoftGroupNet(nn.Module):
         pt_offsets = self.offset_linear(output_feats, pmask).float()
         return semantic_scores, pt_offsets, output_feats
 
+    @traced('model.backbone')
     def backbone_voxel_heads(self, x: torch.Tensor, pyramid: Pyramid):
         """SoftGroup++ lvl_fusion: the point heads on the level-0 voxels
         (no devoxelize)."""
@@ -163,6 +166,7 @@ class SoftGroupNet(nn.Module):
         v0 = batch.pyramid.levels[0].vox_valid.shape[0]
         return voxel_features(feats, batch.pyramid.p2v, v0)
 
+    @traced('model.refine')
     def instance_head(self, inst_vox_feats, inst_levels, entry_p2v,
                       n_proposal_cap: int):
         """tiny U-Net + cls / mask / iou heads."""
@@ -308,6 +312,7 @@ def pyramid_levels(counts: torch.Tensor, gcfg) -> torch.Tensor:
     return torch.where(counts > hi, 3.0, torch.where(counts > lo, 2.0, 1.0))
 
 
+@traced('model.grouping')
 def forward_grouping(semantic_scores: torch.Tensor, pt_offsets: torch.Tensor,
                      batch_idxs: torch.Tensor, coords_float: torch.Tensor,
                      point_valid: torch.Tensor, cfg: Any,
@@ -418,6 +423,7 @@ def forward_grouping(semantic_scores: torch.Tensor, pt_offsets: torch.Tensor,
 # Cluster re-voxelization (no parameters)
 # ---------------------------------------------------------------------------
 
+@traced('model.voxelize')
 def clusters_voxelization(props: Proposals, feats: torch.Tensor,
                           coords_float: torch.Tensor, scale: float,
                           spatial_shape: int, caps: Any,

@@ -41,6 +41,7 @@ import math
 import numpy as np
 import torch
 
+from ..util.trace import count
 from .gather_kernel import row_gather
 from .join_kernel import cell_neighbor_join
 from .voxelize import compact_ascending
@@ -148,7 +149,8 @@ def ball_cluster(shifted: torch.Tensor, group: torch.Tensor,
         new = new.scatter_reduce(0, src, lab[dst], reduce='amin')
         for _ in range(6):
             new = torch.minimum(new, new[new.clamp(max=n - 1)])
-        if torch.equal(new, lab):
+        count('grouping.rounds')
+        if torch.equal(new, lab):       # one host read a round
             break
         lab = new
     else:
@@ -270,7 +272,8 @@ def _cell_core(shifted, group, valid, payload, radius, cell_scale,
         new = torch.minimum(lab, cl.amin(dim=1))
         for _ in range(4):   # pointer jumping
             new = torch.minimum(new, new[new.long().clamp(0, m - 1)])
-        changed = bool((new != lab).any())
+        count('grouping.rounds')
+        changed = bool((new != lab).any())      # one host read a round
         lab = new
         if not changed:
             break

@@ -43,6 +43,7 @@ import torch
 import torch.distributed as dist
 
 from ..model.blocks import MaskedBatchNorm
+from ..util.trace import span
 
 __all__ = ['all_reduce_mean', 'average_step', 'check_devices',
            'collect_results', 'free_port', 'init_dist', 'norm_buffers',
@@ -140,14 +141,13 @@ def average_step(params, net: torch.nn.Module, log_vars: dict,
             p.grad = torch.zeros_like(p)
         grads.append(p.grad)
     nbytes = {}
-    with torch.profiler.record_function('ddp.grad_allreduce'):
+    with span('ddp.grad_allreduce'):
         nbytes['grads'] = all_reduce_mean(grads, group)
     keys = sorted(log_vars)
     logs = torch.stack([log_vars[k].detach().float() for k in keys])
-    with torch.profiler.record_function('ddp.log_allreduce'):
+    with span('ddp.log_allreduce'):
         nbytes['logs'] = all_reduce_mean([logs], group)
-    with torch.no_grad(), torch.profiler.record_function(
-            'ddp.buffer_allreduce'):
+    with torch.no_grad(), span('ddp.buffer_allreduce'):
         nbytes['buffers'] = all_reduce_mean(norm_buffers(net), group)
     return dict(zip(keys, logs.unbind())), nbytes
 

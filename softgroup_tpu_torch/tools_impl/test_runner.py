@@ -14,7 +14,7 @@ scan of a config's test split through it, ``summarize`` scores them
 
 from __future__ import annotations
 
-import time
+from contextlib import nullcontext
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ from ..evaluation.postprocess import (get_gt_instances, get_instances,
                                       panoptic_fusion, to_numpy)
 from ..model.softgroup import Capacities
 from ..ops.geometry import host_geometry
+from ..util import trace
 from ..util.config import getattr_or
 
 
@@ -66,6 +67,7 @@ class InferenceRunner:
         self.device = torch.device(device)
         self.lvl_fusion = bool(self.cfg.test_cfg.get('lvl_fusion', False))
 
+    @trace.traced('runner.forward')
     def forward(self, batch, caps: Capacities) -> dict:
         """The device outputs (tensors) of one batch."""
         method = (self.net.test_forward_plus if self.lvl_fusion
@@ -101,80 +103,89 @@ class InferenceRunner:
         fusion (``n_pasted``, a ``'panoptic'`` task) and the host clock of
         each stage in ms (``host_batch_ms``, ``forward_ms`` with the device
         synchronised, ``postprocess_ms``: the copy to the host, the
-        instances and their fusion)."""
+        instances and their fusion), read from the stages' spans (the scan
+        opens a trace session for them where none is open)."""
+        own = stats is not None and not trace.active()
+        with trace.session() if own else nullcontext():
+            return self._run_scene(data, stats)
+
+    def _run_scene(self, data: dict, stats: dict | None) -> dict:
         tasks = self.cfg.test_cfg.eval_tasks
         scan_id = data['scan_ids'][0]
         n = len(data['coords'])
-        t0 = time.perf_counter()
-        batch, caps = self.build_batch(data)
-        t1 = time.perf_counter()
+        with trace.span('runner.host_batch') as host:
+            batch, caps = self.build_batch(data)
         out = self.forward(batch, caps)
         if stats is not None and self.device.type == 'cuda':
             torch.cuda.synchronize(self.device)
-        t2 = time.perf_counter()
-        out = to_numpy(out)
+        with trace.span('runner.postprocess') as post:
+            out = to_numpy(out)
 
-        # the batch is in voxel-sorted point order (data/padding.py);
-        # every per-point output goes back to the scan's order here
-        perm = (batch.point_perm[:n].cpu().numpy()
-                if batch.point_perm is not None else None)
+            # the batch is in voxel-sorted point order (data/padding.py);
+            # every per-point output goes back to the scan's order here
+            perm = (batch.point_perm[:n].cpu().numpy()
+                    if batch.point_perm is not None else None)
 
-        def unperm(a):
-            if perm is None:
-                return a
-            o = np.empty_like(a)
-            o[perm] = a
-            return o
+            def unperm(a):
+                if perm is None:
+                    return a
+                o = np.empty_like(a)
+                o[perm] = a
+                return o
 
-        sem_preds = unperm(out['semantic_preds'][:n])
-        if perm is not None:
-            # get_instances reads point-level fields straight from `out`
-            out['semantic_preds'] = np.concatenate(
-                [sem_preds, out['semantic_preds'][n:]])
-            if 'entry_pt' in out and not self.lvl_fusion:
-                # proposal entries index points in sorted order (under
-                # lvl_fusion they index voxels and stay as they are)
-                ev = out['entry_valid']
-                pts = perm[np.clip(out['entry_pt'], 0, n - 1)]
-                out['entry_pt'] = np.where(ev, pts, out['entry_pt'])
+            sem_preds = unperm(out['semantic_preds'][:n])
+            if perm is not None:
+                # get_instances reads point-level fields straight from
+                # `out`
+                out['semantic_preds'] = np.concatenate(
+                    [sem_preds, out['semantic_preds'][n:]])
+                if 'entry_pt' in out and not self.lvl_fusion:
+                    # proposal entries index points in sorted order (under
+                    # lvl_fusion they index voxels and stay as they are)
+                    ev = out['entry_valid']
+                    pts = perm[np.clip(out['entry_pt'], 0, n - 1)]
+                    out['entry_pt'] = np.where(ev, pts, out['entry_pt'])
 
-        ret = dict(scan_id=scan_id)
-        if 'semantic' in tasks or 'panoptic' in tasks:
-            ret.update(semantic_labels=data['semantic_labels'],
-                       instance_labels=data['instance_labels'])
-        if 'semantic' in tasks:
-            ret.update(
-                coords_float=data['coords_float'],
-                color_feats=data['feats'],
-                semantic_preds=sem_preds,
-                offset_preds=unperm(out['pt_offsets'][:n]),
-                offset_labels=data['pt_offset_labels'])
-        pred_instances = ()
-        if not self.net.semantic_only and (
-                'instance' in tasks or 'panoptic' in tasks):
-            if self.lvl_fusion:
-                # masks live on voxels: expand through the un-permuted p2v
-                p2v = unperm(batch.pyramid.p2v[:n].cpu().numpy())
-                n_vox = int(batch.pyramid.levels[0].vox_valid.sum())
-                pred_instances = get_instances(scan_id, out, n_vox,
-                                               self.cfg, v2p_map=p2v)
-            else:
-                pred_instances = get_instances(scan_id, out, n, self.cfg)
-            if 'instance' in tasks:
-                ret['pred_instances'] = pred_instances
-                ret['gt_instances'] = get_gt_instances(
-                    data['semantic_labels'], data['instance_labels'],
-                    self.cfg.semantic_classes, self.cfg.instance_classes)
-            if 'panoptic' in tasks:
-                ret['panoptic_preds'] = panoptic_fusion(
-                    sem_preds, pred_instances, self.cfg,
-                    self.cfg.semantic_classes, self.cfg.instance_classes)
+            ret = dict(scan_id=scan_id)
+            if 'semantic' in tasks or 'panoptic' in tasks:
+                ret.update(semantic_labels=data['semantic_labels'],
+                           instance_labels=data['instance_labels'])
+            if 'semantic' in tasks:
+                ret.update(
+                    coords_float=data['coords_float'],
+                    color_feats=data['feats'],
+                    semantic_preds=sem_preds,
+                    offset_preds=unperm(out['pt_offsets'][:n]),
+                    offset_labels=data['pt_offset_labels'])
+            pred_instances = ()
+            if not self.net.semantic_only and (
+                    'instance' in tasks or 'panoptic' in tasks):
+                if self.lvl_fusion:
+                    # masks live on voxels: expand through the un-permuted
+                    # p2v
+                    p2v = unperm(batch.pyramid.p2v[:n].cpu().numpy())
+                    n_vox = int(batch.pyramid.levels[0].vox_valid.sum())
+                    pred_instances = get_instances(scan_id, out, n_vox,
+                                                   self.cfg, v2p_map=p2v)
+                else:
+                    pred_instances = get_instances(scan_id, out, n, self.cfg)
+                if 'instance' in tasks:
+                    ret['pred_instances'] = pred_instances
+                    ret['gt_instances'] = get_gt_instances(
+                        data['semantic_labels'], data['instance_labels'],
+                        self.cfg.semantic_classes, self.cfg.instance_classes)
+                if 'panoptic' in tasks:
+                    ret['panoptic_preds'] = panoptic_fusion(
+                        sem_preds, pred_instances, self.cfg,
+                        self.cfg.semantic_classes, self.cfg.instance_classes)
         if stats is not None:
             stats.update(
                 caps=caps, n_proposals=int(out.get('n_proposals', 0)),
-                host_batch_ms=(t1 - t0) * 1e3, forward_ms=(t2 - t1) * 1e3,
-                postprocess_ms=(time.perf_counter() - t2) * 1e3,
-                n_points=n,
+                host_batch_ms=host.ms,
+                # the batch's end to the postprocess: the forward, its
+                # device work synchronised
+                forward_ms=(post.start_ns - host.end_ns) * 1e-6,
+                postprocess_ms=post.ms, n_points=n,
                 n_voxels=int(batch.pyramid.levels[0].vox_valid.sum()),
                 n_instances=len(pred_instances))
             if 'panoptic_preds' in ret:

@@ -18,6 +18,7 @@ import torch
 
 from .model.softgroup import SoftGroupNet
 from .parallel.ddp import average_step
+from .util.trace import span
 
 # the modules whose batch norms the reference switches by ``_t``
 BACKBONE_NORM_MODULES = ('unet', 'output_norm', 'semantic_linear',
@@ -61,21 +62,24 @@ class TrainStep:
                  rand: torch.Tensor | None = None) -> dict:
         set_train_modes(self.net, self.frozen)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, log_vars = self.net.loss_forward(
-            batch, self.cfg, self.caps, generator=generator, rand=rand)
-        loss.backward()
+        with span('train.forward'):
+            loss, log_vars = self.net.loss_forward(
+                batch, self.cfg, self.caps, generator=generator, rand=rand)
+        with span('train.backward'):
+            loss.backward()
         params = [p for g in self.optimizer.param_groups for p in g['params']]
         if self.group is not None:
             log_vars, self.reduced_bytes = average_step(
                 params, self.net, log_vars, self.group)
-        if self.clip_grad_norm:
-            self.grad_norm = torch.nn.utils.clip_grad_norm_(
-                params, self.clip_grad_norm)
-        if self.schedule is not None:
-            lr = self.schedule(self.updates)
-            for group in self.optimizer.param_groups:
-                group['lr'] = lr
-        self.optimizer.step()
+        with span('train.optimizer'):
+            if self.clip_grad_norm:
+                self.grad_norm = torch.nn.utils.clip_grad_norm_(
+                    params, self.clip_grad_norm)
+            if self.schedule is not None:
+                lr = self.schedule(self.updates)
+                for group in self.optimizer.param_groups:
+                    group['lr'] = lr
+            self.optimizer.step()
         self.updates += 1
         return {k: v.detach() for k, v in log_vars.items()}
 

@@ -336,7 +336,7 @@ TPU_HARNESSES = (
 NOT_PORTED.update({
     f'tools/{name}.py': 'a benchmark, sweep or diagnosis harness of the '
     'JAX package on a TPU; the port measures with chip_smoke.py, '
-    'time_kernels.py and time_forward.py'
+    'time_kernels.py and portbench/'
     for name in TPU_HARNESSES})
 # reference modules whose counterpart has another name
 RENAMED = {
