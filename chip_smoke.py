@@ -19,7 +19,12 @@ non-zero):
      events around 10 back-to-back calls
      of the kernel, the plain version and the library call (``ms``,
      ``plain_ms``, ``library_ms``: host gaps included), and the wrapper's
-     host time a call (``host_us``);
+     host time a call (``host_us``); then ``[bn]`` lines: the masked batch
+     norm + ReLU kernels (``csrc/norm.cu``) at the ScanNet train cell's
+     level 0 and level 6 and an S3DIS room's level 0 in eval, each held
+     first to autograd of the plain version (output, running buffers,
+     dx, dscale, dbias), then device ms beside the bound and the plain
+     version's device ms, host us and launches (``bn_lines``);
   3. the serving path: >= 3 requests (host batch -> test_forward on the
      card -> get_instances) of 250k-point rooms at full flagship width, with
      every launch counter set to 0 just before and read just after, then
@@ -225,16 +230,19 @@ def log(msg: str) -> None:
 
 
 def kernel_wrappers() -> dict:
-    """The seven kernel wrappers by name (each counts its launches)."""
+    """The kernel wrappers by name (each counts its launches): K1-K7 and
+    the masked batch norm."""
     from softgroup_tpu_torch.ops import conv_kernel as ck
     from softgroup_tpu_torch.ops import gather_kernel as gk
     from softgroup_tpu_torch.ops import join_kernel as jk
+    from softgroup_tpu_torch.ops import norm_kernel as nk
     return dict(rulebook_conv=ck.rulebook_conv, row_gather=gk.row_gather,
                 cell_neighbor_join=jk.cell_neighbor_join,
                 keyed_conv=ck.keyed_conv,
                 rulebook_conv_dw=ck.rulebook_conv_dw,
                 sorted_segment_sum=gk.sorted_segment_sum,
-                sorted_key_rules_join=jk.sorted_key_rules_join)
+                sorted_key_rules_join=jk.sorted_key_rules_join,
+                masked_batch_norm=nk.masked_batch_norm)
 
 
 def reset_counts() -> None:
@@ -294,6 +302,107 @@ def profile(fn, label: str, card: str) -> None:
         f'{name} {sum(r[0] for r in rows if all(w in r[2] for w in ws)):.3f}'
         f' ms in {sum(r[1] for r in rows if all(w in r[2] for w in ws))}'
         for name, ws in fams.items()))
+
+
+# the [bn] cases: (label, V, C, valid rows, train mode): the ScanNet train
+# cell's level 0 and level 6 caps (364.5k of 524,288 level-0 voxels valid,
+# the same share below) and an S3DIS room's level 0 in eval
+BN_CASES = (('train L0', 524288, 32, 364544, True),
+            ('train L6', 8192, 224, 5695, True),
+            ('s3dis L0 eval', 1048576, 32, 890000, False))
+
+
+def bn_lines(card: str) -> None:
+    """``[bn]`` lines: the masked batch norm + ReLU kernels at BN_CASES
+    (bf16, the valid rows first, the invalid ones 16 away from their
+    values), forward and backward apart.  Each case is first held to
+    autograd of the plain version (the module's formula through PyTorch
+    ops): output, running buffers, dx, dscale and dbias within
+    ``time_kernels.bn_faults``'s bounds, else the phase fails.  Then each
+    direction's device ms (profiler, 20 calls), CUDA-event ms over 10
+    back-to-back calls, the host's us a call (the backward as the autograd
+    engine calls it, its graph node's ``apply``: a train step pays the
+    engine's own start once for the whole graph), the launches one call
+    made, the bound (each byte read once and written once at 3.35
+    TB/s), the design's passes at that rate (train forward reads x twice,
+    the backward x and dy twice), the plain version's device ms (autograd
+    for the backward), each kernel's device ms and the largest errors."""
+    import torch
+
+    from softgroup_tpu_torch.ops import norm_kernel as nk
+    from softgroup_tpu_torch.time_kernels import (BN_EPS, BN_MOMENTUM,
+                                                  HBM_BYTES_PER_S, bn_case,
+                                                  bn_faults, bn_run, cuda_ms,
+                                                  device_reading,
+                                                  device_split, host_us,
+                                                  reading_text)
+    dev = 'cuda'
+    ms_a_byte = 1e3 / HBM_BYTES_PER_S
+
+    def launched(fn):
+        before = nk.masked_batch_norm.launches
+        fn()
+        return nk.masked_batch_norm.launches - before
+
+    for label, v, c, valid, training in BN_CASES:
+        case = bn_case(dev, v, c, torch.bfloat16, seed=v + c,
+                       mask=torch.arange(v, device=dev) < valid)
+        x, mask, scale, bias, mean, var, dy = case
+        want = bn_run(nk.batch_norm_plain, *case, training, True)
+        got = bn_run(nk.masked_batch_norm, *case, training, True)
+        faults = bn_faults(got, want, case, training, True, torch.bfloat16)
+        if faults:
+            raise RuntimeError(f'[bn] {label}: {faults}')
+        err = [float((a.float() - b.float()).abs().max())
+               for a, b in zip(got, want)]
+        args = (scale, bias, mean.clone(), var.clone(), training, BN_EPS,
+                BN_MOMENTUM, True)
+
+        def forward():
+            return nk.masked_batch_norm(x, mask, *args)
+
+        def plain():
+            return nk.batch_norm_plain(x, mask, *args)
+
+        with torch.no_grad():
+            launches = launched(forward)
+            times = (f'device_ms={reading_text(device_reading(forward))} '
+                     f'ms={cuda_ms(forward):.6f} '
+                     f'host_us={host_us(forward):.3f}')
+            plain_ms = reading_text(device_reading(plain))
+            split = device_split(forward)
+        elems = v * c * x.element_size()
+        mbytes = v if training else 0
+        log(f'[bn] {label} ({v}, {c}) bf16 forward: {times} bound_ms='
+            f'{(2 * elems + mbytes) * ms_a_byte:.6f} passes_ms='
+            f'{((3 if training else 2) * elems + mbytes) * ms_a_byte:.6f} '
+            f'plain_device_ms={plain_ms} launches={launches} '
+            f'max_abs_err out={err[0]:.6g} running mean={err[1]:.6g} '
+            f'var={err[2]:.6g} kernels={split} [{card}]')
+        if not training:
+            continue
+        leaves = [t.clone().requires_grad_(True) for t in (x, scale, bias)]
+        out = nk.masked_batch_norm(leaves[0], mask, *leaves[1:],
+                                   mean.clone(), var.clone(), True, BN_EPS,
+                                   BN_MOMENTUM, True)
+        out_plain = nk.batch_norm_plain(leaves[0], mask, *leaves[1:],
+                                        mean.clone(), var.clone(), True,
+                                        BN_EPS, BN_MOMENTUM, True)
+
+        def backward():     # the backward alone, as the engine calls it
+            return out.grad_fn.apply(dy)
+
+        launches = launched(backward)
+        plain_ms = reading_text(device_reading(lambda: torch.autograd.grad(
+            out_plain, leaves, dy, retain_graph=True)))
+        log(f'[bn] {label} ({v}, {c}) bf16 backward: device_ms='
+            f'{reading_text(device_reading(backward))} ms='
+            f'{cuda_ms(backward):.6f} host_us={host_us(backward):.3f} '
+            f'bound_ms={(3 * elems + v) * ms_a_byte:.6f} passes_ms='
+            f'{(5 * elems + v) * ms_a_byte:.6f} plain_device_ms={plain_ms} '
+            f'launches={launches} max_abs_err dx={err[3]:.6g} '
+            f'dscale={err[4]:.6g} dbias={err[5]:.6g} '
+            f'kernels={device_split(backward)} [{card}]')
 
 
 def main() -> int:
@@ -993,6 +1102,7 @@ def main() -> int:
             partial_trace=reading[1] or bool(lib_dev and lib_dev[1])))
     del cases
     torch.cuda.empty_cache()
+    bn_lines(card)
     phase_done('kernels vs plain')
 
     # ---- phase 3: the serving path -------------------------------------
@@ -1030,7 +1140,8 @@ def main() -> int:
     log(f'[main-path] serving: launches over {N_REQUESTS} requests: '
         f'{json.dumps(serve_counts)}')
     missing = [k for k in ('rulebook_conv', 'row_gather',
-                           'cell_neighbor_join', 'keyed_conv')
+                           'cell_neighbor_join', 'keyed_conv',
+                           'masked_batch_norm')
                if serve_counts[k] <= 0]
     if missing:
         raise RuntimeError(f'kernels never launched on the serving path: '
@@ -1125,7 +1236,7 @@ def main() -> int:
             f'steps: {json.dumps(counts)}')
         need = ['rulebook_conv', 'row_gather', 'cell_neighbor_join',
                 'rulebook_conv_dw', 'sorted_segment_sum',
-                'sorted_key_rules_join']
+                'sorted_key_rules_join', 'masked_batch_norm']
         missing = [k for k in need if counts[k] <= 0]
         if missing:
             raise RuntimeError(f'kernels never launched on the training '
@@ -2855,7 +2966,8 @@ def kitti_cli_phase(path: str, batch, reset_counts, read_counts, card,
         raise RuntimeError('KITTI CLI: a step without proposals')
     need = ('rulebook_conv', 'row_gather', 'cell_neighbor_join',
             'cell_neighbor_join_int64', 'rulebook_conv_dw',
-            'sorted_segment_sum', 'sorted_key_rules_join')
+            'sorted_segment_sum', 'sorted_key_rules_join',
+            'masked_batch_norm')
     missing = [k for k in need if train[k] <= 0] + [
         f'validation {k}' for k in ('keyed_conv', 'cell_neighbor_join_int64')
         if val[k] <= 0]
@@ -3042,7 +3154,7 @@ def ddp_phase(card: str) -> dict:
     from softgroup_tpu_torch.parallel import ddp
     need = ('rulebook_conv', 'row_gather', 'cell_neighbor_join',
             'rulebook_conv_dw', 'sorted_segment_sum',
-            'sorted_key_rules_join')
+            'sorted_key_rules_join', 'masked_batch_norm')
     out = tempfile.TemporaryDirectory()
     # a fixed cuBLAS workspace, for the repeated step's equal bits; the
     # ranks start with it (this process's handles already exist)
@@ -3294,11 +3406,13 @@ class PlainVersions:
     version (a control run on the card)."""
 
     def __enter__(self):
+        from softgroup_tpu_torch.model import blocks
         from softgroup_tpu_torch.model import softgroup as sg
         from softgroup_tpu_torch.ops import conv_kernel as ck
         from softgroup_tpu_torch.ops import gather_kernel as gk
         from softgroup_tpu_torch.ops import grouping, rulebook, sparse_conv
         from softgroup_tpu_torch.ops import join_kernel as jk
+        from softgroup_tpu_torch.ops import norm_kernel as nk
         swaps = [(sparse_conv, 'rulebook_conv', ck.rulebook_conv_plain),
                  (sparse_conv, 'rulebook_conv_dw', ck.rulebook_conv_dw_plain),
                  (gk, 'sorted_segment_sum', gk.sorted_segment_sum_plain),
@@ -3308,7 +3422,8 @@ class PlainVersions:
                  (rulebook, 'sorted_key_rules_join',
                   jk.sorted_key_rules_join_plain),
                  (grouping, 'cell_neighbor_join',
-                  jk.cell_neighbor_join_plain)]
+                  jk.cell_neighbor_join_plain),
+                 (blocks, 'masked_batch_norm', nk.batch_norm_plain)]
         self.saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
         for m, n, f in swaps:
             setattr(m, n, f)
@@ -3344,20 +3459,33 @@ class AlignedReLU:
     on the reference's side of 0 wherever the two straddle it (a
     pre-activation within rounding of 0, whose ReLU decision f32 sums in
     another order may flip), moving the value by at most the straddle and
-    leaving its gradient path intact, and counts those flips."""
+    leaving its gradient path intact, and counts those flips.  The ReLU a
+    batch norm fuses (``relu=True``) is taken out of it for the step and
+    applied here, so every ReLU of both runs passes through this one."""
 
     def __init__(self, ref: list | None = None):
         self.ref, self.seen, self.flips, self.worst = ref, [], 0, 0.0
 
     def __enter__(self):
         import torch
+
+        from softgroup_tpu_torch.model.blocks import MaskedBatchNorm
         self.orig = torch.relu
+        self.bn_forward = bn_forward = MaskedBatchNorm.forward
+
+        def forward(bn, x, mask=None, relu=False):
+            y = bn_forward(bn, x, mask)
+            return torch.relu(y) if relu else y
+        MaskedBatchNorm.forward = forward
         torch.relu = self
         return self
 
     def __exit__(self, *exc):
         import torch
+
+        from softgroup_tpu_torch.model.blocks import MaskedBatchNorm
         torch.relu = self.orig
+        MaskedBatchNorm.forward = self.bn_forward
 
     def __call__(self, x):
         if self.ref is None:

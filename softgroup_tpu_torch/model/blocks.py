@@ -20,6 +20,7 @@ from torch import nn
 
 from ..ops.conv_kernel import keyed_conv
 from ..ops.geometry import LevelGeom
+from ..ops.norm_kernel import masked_batch_norm
 from ..ops.sparse_conv import down_conv, inverse_conv, linear, subm_conv
 from ..util.trace import traced
 
@@ -40,7 +41,9 @@ class MaskedBatchNorm(nn.Module):
     momentum=0.1; the biased batch variance normalizes, the unbiased one
     updates the running variance, with the reference's max(n - 1, 1)
     guard).  The result is computed in f32 and returned in the input's
-    dtype; statistics are f32."""
+    dtype; statistics are f32.  ``relu`` applies the ReLU that follows
+    every call site (fused into the kernels on the card:
+    ``ops/norm_kernel.py``)."""
 
     def __init__(self, features: int, eps: float = 1e-4,
                  momentum: float = 0.1):
@@ -53,26 +56,13 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer('var', torch.ones(features))
 
     @traced('bn')
-    def forward(self, x: torch.Tensor,
-                mask: torch.Tensor | None = None) -> torch.Tensor:
-        xf = x.float()
-        if self.training:
-            if mask is None:
-                raise ValueError('MaskedBatchNorm: train mode needs the '
-                                 'row mask')
-            m = mask.float()[:, None]
-            n = m.sum().clamp(min=1.0)
-            mean = (xf * m).sum(0) / n
-            var = ((xf - mean).square() * m).sum(0) / n
-            with torch.no_grad():
-                unbiased = var * n / (n - 1.0).clamp(min=1.0)
-                self.mean.mul_(1 - self.momentum).add_(self.momentum * mean)
-                self.var.mul_(1 - self.momentum).add_(
-                    self.momentum * unbiased)
-        else:
-            mean, var = self.mean, self.var
-        y = (xf - mean) * torch.rsqrt(var + self.eps) * self.scale + self.bias
-        return y.to(x.dtype)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None,
+                relu: bool = False) -> torch.Tensor:
+        if self.training and mask is None:
+            raise ValueError('MaskedBatchNorm: train mode needs the row mask')
+        return masked_batch_norm(x, mask, self.scale, self.bias, self.mean,
+                                 self.var, self.training, self.eps,
+                                 self.momentum, relu)
 
 
 class Dense(nn.Module):
@@ -154,8 +144,9 @@ class MLP(nn.Module):
             x = linear(x, getattr(self, f'hidden{i}_kernel'),
                        getattr(self, f'hidden{i}_bias'))
             if self.norm:
-                x = getattr(self, f'norm{i}')(x, mask)
-            x = torch.relu(x)
+                x = getattr(self, f'norm{i}')(x, mask, relu=True)
+            else:
+                x = torch.relu(x)
         return linear(x, self.final_kernel, self.final_bias)
 
 
@@ -177,8 +168,8 @@ class ResidualBlock(nn.Module):
     def forward(self, x, lv: LevelGeom):
         identity = x if self.i_branch_kernel is None \
             else linear(x, self.i_branch_kernel)
-        y = self.conv1(torch.relu(self.norm1(x, lv.vox_valid)), lv)
-        y = self.conv2(torch.relu(self.norm2(y, lv.vox_valid)), lv)
+        y = self.conv1(self.norm1(x, lv.vox_valid, relu=True), lv)
+        y = self.conv2(self.norm2(y, lv.vox_valid, relu=True), lv)
         return y + identity
 
 
@@ -214,10 +205,10 @@ class UBlock(nn.Module):
             x = getattr(self, f'block{i}')(x, lv)
         if self.deep:
             nxt = levels[1]
-            y = self.conv(torch.relu(self.conv_norm(x, lv.vox_valid)), lv,
+            y = self.conv(self.conv_norm(x, lv.vox_valid, relu=True), lv,
                           nxt)
             y = self.u(y, levels[1:])
-            y = torch.relu(self.deconv_norm(y, nxt.vox_valid))
+            y = self.deconv_norm(y, nxt.vox_valid, relu=True)
             y = self.deconv(y, lv.parent_idx, lv.child_tap, lv.down_rules)
             x = torch.cat([x, y], dim=1)
             for i in range(self.block_reps):

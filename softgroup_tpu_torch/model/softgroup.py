@@ -133,7 +133,7 @@ class SoftGroupNet(nn.Module):
         x = x.to(torch.bfloat16 if self.bf16 else torch.float32)
         x = self.input_conv(x, lv0)
         x = self.unet(x, pyramid.levels)
-        return torch.relu(self.output_norm(x, lv0.vox_valid))
+        return self.output_norm(x, lv0.vox_valid, relu=True)
 
     @traced('model.backbone')
     def backbone(self, x: torch.Tensor, pyramid: Pyramid):
@@ -174,7 +174,7 @@ class SoftGroupNet(nn.Module):
         x = inst_vox_feats.to(torch.bfloat16 if self.bf16
                               else torch.float32)
         x = self.tiny_unet(x, inst_levels)
-        x = torch.relu(self.tiny_output_norm(x, lv0.vox_valid))
+        x = self.tiny_output_norm(x, lv0.vox_valid, relu=True)
         mask_scores_vox = self.mask_linear(x, lv0.vox_valid)
         mask_scores = gather_rows(mask_scores_vox, entry_p2v)
         # proposal-level pooled features; a voxel's proposal id is its

@@ -28,7 +28,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), 'csrc')
 BUILD = os.path.join(os.path.dirname(CSRC), 'build')
-SOURCES = ('conv', 'gather', 'join')
+SOURCES = ('conv', 'gather', 'join', 'norm')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo')
 
@@ -51,6 +51,10 @@ SIGNATURES = {
              'sg_cell_join64': (_P, _P, _P, _P, _P, _I, _F, _I, _P, _P,
                                 _P),
              'sg_rules_join': (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P)},
+    'norm': {'sg_bn_forward': (_P, _P, _P, _P, _P, _P, _P, _F, _F, _I, _P,
+                               _P, _P),
+             'sg_bn_backward': (_P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _I,
+                                _P, _P, _P)},
 }
 
 _libs: dict = {}

@@ -191,11 +191,15 @@ def reading_text(reading: tuple[float, bool]) -> str:
 
 def device_split(fn, reps: int = DEVICE_REPS) -> str:
     """The device ms a call of each kernel of ``fn`` (profiler, ``reps``
-    calls), as ``name:ms,...`` with the names cut at their first '(' (and
-    `` partial_trace=True`` for a trace that stayed short)."""
+    calls), as ``name:ms,...`` with the names cut at their first '(' or
+    '<', without an anonymous namespace (and `` partial_trace=True`` for a
+    trace that stayed short)."""
     rows, partial = profiled_rows(fn, reps)
-    return ','.join(f'{name.split("(")[0].split("<")[0].split(" ")[-1]}:'
-                    f'{ms / reps:.6f}'
+
+    def short(name):
+        name = name.replace('(anonymous namespace)::', '')
+        return name.split('(')[0].split('<')[0].split(' ')[-1]
+    return ','.join(f'{short(name)}:{ms / reps:.6f}'
                     for ms, _, name in sorted(rows, reverse=True)) + (
         ' partial_trace=True' if partial else '')
 
@@ -213,6 +217,125 @@ def host_us(fn, reps: int = 20) -> float:
     torch.cuda.synchronize()
     return dt / reps * 1e6
 
+
+
+# the module's eps and momentum, for the masked batch norm's checks on the
+# card (``bn_case``, ``bn_run``, ``bn_faults``: the card tests and
+# ``chip_smoke.py``'s ``[bn]`` lines)
+BN_EPS, BN_MOMENTUM = 1e-4, 0.1
+
+
+def bn_case(dev, v: int, c: int, dtype, seed: int, valid: float = 0.7,
+            mask=None):
+    """x off zero and of unequal channel scales; the first ``valid`` of the
+    rows valid with holes (a capacity's padded tail), or ``mask``; the
+    invalid rows 16 away from the valid ones' values (up in even channels,
+    down in odd), so that statistics or a gradient that take them in miss
+    by far; f32 parameters and running buffers; an upstream gradient in
+    x's type."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = (torch.randn(v, c, device=dev, generator=g)
+         * torch.linspace(0.3, 3.0, c, device=dev)
+         + torch.linspace(-4.0, 6.0, c, device=dev))
+    holes = torch.rand(v, device=dev, generator=g) < 0.9
+    if mask is None:
+        mask = (torch.arange(v, device=dev) < int(valid * v)) & holes
+    off = 16.0 * (1 - 2 * (torch.arange(c, device=dev) % 2))
+    x = torch.where(mask[:, None], x, x + off).to(dtype)
+    scale = torch.rand(c, device=dev, generator=g) + 0.5
+    bias = torch.randn(c, device=dev, generator=g)
+    mean = torch.randn(c, device=dev, generator=g)
+    var = torch.rand(c, device=dev, generator=g) + 0.5
+    dy = torch.randn(v, c, device=dev, generator=g).to(dtype)
+    return x, mask, scale, bias, mean, var, dy
+
+
+def bn_run(fn, x, mask, scale, bias, mean, var, dy, training, relu):
+    """(out, running mean, running var, dx, dscale, dbias) of ``fn`` (the
+    signature of ``norm_kernel.masked_batch_norm``) on copies."""
+    import torch
+    x = x.clone().requires_grad_(True)
+    scale = scale.clone().requires_grad_(True)
+    bias = bias.clone().requires_grad_(True)
+    mean, var = mean.clone(), var.clone()
+    out = fn(x, mask, scale, bias, mean, var, training, BN_EPS, BN_MOMENTUM,
+             relu)
+    grads = torch.autograd.grad(out, (x, scale, bias), dy)
+    return (out.detach(), mean, var) + grads
+
+
+def _by_validity(w, mask):
+    """Each row's scale for a bound: the largest |w| among the rows on its
+    side of the mask, at least 1."""
+    import torch
+    a = w.float().abs().amax(1)
+    top = [float(a[sel].max()) if bool(sel.any()) else 0.0
+           for sel in (mask, ~mask)]
+    return torch.where(mask, top[0], top[1]).clamp(min=1.0)[:, None]
+
+
+def bn_faults(got, want, case, training: bool, relu: bool,
+              dtype) -> list[str]:
+    """What of ``got`` (the kernels' ``bn_run``) lies beyond its bound from
+    ``want`` (autograd of ``batch_norm_plain``); empty where all holds.
+    out and dx: one rounding in x's type (f32: 1e-5) of the largest value
+    on the row's side of the mask; the running buffers 2e-5 of the largest
+    (and moved, in train mode); dscale, dbias: f32 sums of up to 1M rows in
+    another order, 2e-5 of the sum of |terms| a channel.  An element whose
+    pre-ReLU value lies within 1e-5 of its terms' size of 0 may take either
+    side of the gate in the two formulas (a few of the 16M elements of a
+    level do): its dx is left out, and its whole term is allowed in the
+    sums and in the valid rows' share of them (dx's mean and variance
+    terms)."""
+    import torch
+    x, mask, scale, bias, mean0, var0, dy = case
+    out, rmean, rvar, dx, dscale, dbias = got
+    w_out, w_rmean, w_rvar, w_dx, w_dscale, w_dbias = want
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+    faults = [f'{name} is {t.dtype}' for name, t in (('out', out),
+                                                      ('dx', dx))
+              if t.dtype != dtype]
+    err = (out.float() - w_out.float()).abs()
+    if not bool((err <= tol * _by_validity(w_out, mask)).all()):
+        faults.append(f'out: max error {float(err.max()):.6g}')
+    xf = x.float()
+    m = mask.float()[:, None]
+    n = m.sum().clamp(min=1.0)
+    if training:
+        mu = (xf * m).sum(0) / n
+        sd = (((xf - mu).square() * m).sum(0) / n + BN_EPS).rsqrt()
+    else:
+        mu, sd = mean0, (var0 + BN_EPS).rsqrt()
+    for name, a, b, ref in (('running mean', rmean, w_rmean, mean0),
+                            ('running var', rvar, w_rvar, var0)):
+        gap = float((a - b).abs().max())
+        if gap > 2e-5 * max(1.0, float(b.abs().max())):
+            faults.append(f'{name}: max error {gap:.6g}')
+        if training and torch.equal(a, ref):
+            faults.append(f'{name}: not moved')
+    xh = (xf - mu) * sd
+    pre = xh * scale + bias
+    gy = dy.float()
+    amb = pre.abs() <= 1e-5 * ((xh * scale).abs() + bias.abs()) if relu \
+        else torch.zeros_like(pre, dtype=torch.bool)
+    g = gy * (pre > 0) if relu else gy
+    s1 = (gy.abs() * amb).sum(0)
+    s2 = ((gy * xh).abs() * amb).sum(0)
+    shift = (m * (scale * sd).abs() * (s1 + xh.abs() * s2) / n
+             if training else 0.0)
+    err = (dx.float() - w_dx.float()).abs()
+    bound = tol * _by_validity(w_dx, mask) + shift
+    if not bool(((err <= bound) | amb).all()):
+        faults.append(f'dx: max error {float((err * ~amb).max()):.6g}')
+    for name, a, b, terms, flip in (('dscale', dscale, w_dscale, g * xh, s2),
+                                    ('dbias', dbias, w_dbias, g, s1)):
+        if a.dtype != torch.float32:
+            faults.append(f'{name} is {a.dtype}')
+        gap = (a - b).abs()
+        if not bool((gap <= 2e-5 * terms.abs().sum(0) + flip + 1e-6).all()):
+            faults.append(f'{name}: max error {float(gap.max()):.6g}')
+    return faults
 
 class Recorder:
     """Wraps the kernel wrappers at their call sites during one run and

@@ -13,10 +13,13 @@ from softgroup_tpu_torch.data.synthetic import collate_scenes, make_room_scene
 from softgroup_tpu_torch.ops import conv_kernel as ck
 from softgroup_tpu_torch.ops import gather_kernel as gk
 from softgroup_tpu_torch.ops import join_kernel as jk
+from softgroup_tpu_torch.ops import norm_kernel as nk
 from softgroup_tpu_torch.ops.grouping import offsets
 from softgroup_tpu_torch.ops.rulebook import (build_downsample_np,
                                               build_subm_rules_np)
 from softgroup_tpu_torch.ops.voxelize import voxelize_np
+from softgroup_tpu_torch.time_kernels import (BN_EPS, BN_MOMENTUM, bn_case,
+                                              bn_faults, bn_run)
 
 pytestmark = pytest.mark.cuda
 INT_MAX = 2 ** 31 - 1
@@ -911,3 +914,109 @@ def test_plus_request_matches_cpu(dev):
                 for y in a['pred_instances']
                 if y['label_id'] == x['label_id'])), default=0.0))
     assert np.mean(best) >= 0.99
+
+
+# masked batch norm + ReLU (csrc/norm.cu): the ScanNet train levels (V, C)
+# from 524288 x 32 to 8192 x 224, the S3DIS / point-head cap 1048576 x 32,
+# the 2C tail of the 192-wide level, STPLS3D's 16 channels, a ragged V and
+# a C that takes no 16-byte vectors
+BN_SHAPES = [(524288, 32), (262144, 64), (131072, 96), (65536, 128),
+             (32768, 160), (16384, 192), (8192, 224), (1048576, 32),
+             (16384, 384), (524288, 16), (3001, 32), (5000, 19)]
+
+
+def _bn_compare(got, want, case, training, relu, dtype):
+    """Kernel against autograd of the module's formula on the card, within
+    ``time_kernels.bn_faults``'s bounds."""
+    faults = bn_faults(got, want, case, training, relu, dtype)
+    assert not faults, faults
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('v,c', BN_SHAPES)
+def test_batch_norm_train(dev, v, c, dtype):
+    """Train mode with the ReLU (every call site's), forward and backward:
+    the kernels against autograd of ``batch_norm_plain``; a second call is
+    equal bit for bit (no atomics); 3 launches forward, 3 backward."""
+    case = bn_case(dev, v, c, dtype, seed=v + c)
+    want = bn_run(nk.batch_norm_plain, *case, True, True)
+    before = nk.masked_batch_norm.launches
+    got = bn_run(nk.masked_batch_norm, *case, True, True)
+    assert nk.masked_batch_norm.launches - before == 6
+    _bn_compare(got, want, case, True, True, dtype)
+    again = bn_run(nk.masked_batch_norm, *case, True, True)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('case_name', ['no relu', 'one valid', 'none valid',
+                                       'all valid', 'unaligned'])
+def test_batch_norm_train_cases(dev, case_name, dtype):
+    """Without the ReLU; masks with one, none or every row valid; x at an
+    address off 16 bytes (one channel a thread)."""
+    v, c = 20000, 64
+    rows = torch.arange(v, device=dev)
+    mask = {'one valid': rows == 123, 'none valid': rows < 0,
+            'all valid': rows >= 0}.get(case_name)
+    case = list(bn_case(dev, v, c, dtype, seed=7, mask=mask))
+    if case_name == 'unaligned':
+        base = torch.empty(v * c + 1, dtype=dtype, device=dev)
+        base[1:].copy_(case[0].reshape(-1))
+        case[0] = base[1:].view(v, c)
+        assert nk._tile(case[0])[3] == 1
+    relu = case_name != 'no relu'
+    want = bn_run(nk.batch_norm_plain, *case, True, relu)
+    got = bn_run(nk.masked_batch_norm, *case, True, relu)
+    _bn_compare(got, want, case, True, relu, dtype)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('v,c', [(1048576, 32), (8192, 224), (16384, 384),
+                                 (5000, 19)])
+def test_batch_norm_eval(dev, v, c, dtype):
+    """Eval mode: one pass forward with the running statistics, which stay
+    as they were; the backward with the parameters (reduction + dx) and
+    with x alone (one pass); no-grad calls launch one kernel."""
+    case = bn_case(dev, v, c, dtype, seed=3)
+    x, mask, scale, bias, mean, var, dy = case
+    want = bn_run(nk.batch_norm_plain, *case, False, True)
+    got = bn_run(nk.masked_batch_norm, *case, False, True)
+    _bn_compare(got, want, case, False, True, dtype)
+    assert torch.equal(got[1], mean) and torch.equal(got[2], var)
+    xg = x.clone().requires_grad_(True)
+    before = nk.masked_batch_norm.launches
+    out = nk.masked_batch_norm(xg, None, scale, bias, mean, var, False,
+                               BN_EPS, BN_MOMENTUM, True)
+    (dx,) = torch.autograd.grad(out, (xg,), dy)
+    assert nk.masked_batch_norm.launches - before == 2
+    assert torch.equal(dx, got[3])
+    with torch.inference_mode():
+        before = nk.masked_batch_norm.launches
+        y = nk.masked_batch_norm(x, None, scale, bias, mean, var, False,
+                                 BN_EPS, BN_MOMENTUM, True)
+        assert nk.masked_batch_norm.launches - before == 1
+    assert torch.equal(y, got[0])
+
+
+def test_batch_norm_only_its_kernels(dev):
+    """A module call with its backward runs the six norm.cu kernels and no
+    PyTorch reduction, elementwise or copy kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from softgroup_tpu_torch.model.blocks import MaskedBatchNorm
+    from softgroup_tpu_torch.time_kernels import kernel_rows
+    x, mask, *_, dy = bn_case(dev, 262144, 64, torch.bfloat16, seed=9)
+    bn = MaskedBatchNorm(64).to(dev).train()
+    x.requires_grad_(True)
+    bn(x, mask, relu=True)     # warm: the library is loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = bn(x, mask, relu=True)
+        torch.autograd.grad(out, (x, bn.scale, bn.bias), dy)
+        torch.cuda.synchronize()
+    names = [name for _, count, name in kernel_rows(prof)
+             for _ in range(count)]
+    assert len(names) == 6, names
+    assert all('bn_' in n for n in names), names
