@@ -19,12 +19,22 @@ non-zero):
      events around 10 back-to-back calls
      of the kernel, the plain version and the library call (``ms``,
      ``plain_ms``, ``library_ms``: host gaps included), and the wrapper's
-     host time a call (``host_us``); then ``[bn]`` lines: the masked batch
-     norm + ReLU kernels (``csrc/norm.cu``) at the ScanNet train cell's
-     level 0 and level 6 and an S3DIS room's level 0 in eval, each held
-     first to autograd of the plain version (output, running buffers,
-     dx, dscale, dbias), then device ms beside the bound and the plain
-     version's device ms, host us and launches (``bn_lines``);
+     host time a call (``host_us``); each K1 case is a recorded call as
+     its path launched it (a backbone subm conv on its level's row order);
+     the natural calls of the train CLI's levels 0 and 1, an S3DIS room's
+     level 0 and the flagship's L0 (f32) and L6 then go to ``[order]``
+     lines (``time_kernels.order_lines``: device ms natural and grouped,
+     the order's build, taps a tile, row density, the outputs bit for
+     bit, which fail the run where they differ), and ``[order-build]``
+     lines build the orders of the train cell's 7-level pyramid and an
+     S3DIS room's on the card, held to the CPU's build (device ms,
+     launches, host us); then ``[bn]`` lines:
+     the masked batch norm + ReLU kernels (``csrc/norm.cu``) at the
+     ScanNet train cell's level 0 and level 6 and an S3DIS room's level
+     0 in eval, each held first to autograd of the plain version
+     (output, running buffers, dx, dscale, dbias), then device ms beside
+     the bound and the plain version's device ms, host us and launches
+     (``bn_lines``);
   3. the serving path: >= 3 requests (host batch -> test_forward on the
      card -> get_instances) of 250k-point rooms at full flagship width, with
      every launch counter set to 0 just before and read just after, then
@@ -231,7 +241,8 @@ def log(msg: str) -> None:
 
 def kernel_wrappers() -> dict:
     """The kernel wrappers by name (each counts its launches): K1-K7 and
-    the masked batch norm."""
+    the masked batch norm (``read_counts`` adds K1's launches on a row
+    order and K3's int64 instance)."""
     from softgroup_tpu_torch.ops import conv_kernel as ck
     from softgroup_tpu_torch.ops import gather_kernel as gk
     from softgroup_tpu_torch.ops import join_kernel as jk
@@ -248,15 +259,20 @@ def kernel_wrappers() -> dict:
 def reset_counts() -> None:
     """Every launch counter to 0."""
     from softgroup_tpu_torch.ops import join_kernel as jk
+    from softgroup_tpu_torch.ops import conv_kernel as ck
     for w in kernel_wrappers().values():
         w.launches = 0
+    ck.rulebook_conv.grouped_launches = 0
     jk.cell_neighbor_join.launches64 = 0
 
 
 def read_counts() -> dict:
-    """The launch counters by wrapper (K3's int64 instance apart)."""
+    """The launch counters by wrapper (K1's on a row order and K3's int64
+    instance apart)."""
+    from softgroup_tpu_torch.ops import conv_kernel as ck
     from softgroup_tpu_torch.ops import join_kernel as jk
     return dict({k: w.launches for k, w in kernel_wrappers().items()},
+                rulebook_conv_grouped=ck.rulebook_conv.grouped_launches,
                 cell_neighbor_join_int64=jk.cell_neighbor_join.launches64)
 
 
@@ -434,8 +450,9 @@ def main() -> int:
         from softgroup_tpu_torch.time_kernels import (
             Recorder, bound, cell_join_bound, cuda_ms, device_reading,
             dw_bound, gather_bound, host_us, k4_args, k5_args,
-            k6_trained_fill, k7_trained_fill, nbytes, pick, reading_text,
-            request_args, rules_bound, segsum_bound)
+            k6_trained_fill, k7_trained_fill, natural_k1, nbytes,
+            order_build_lines, order_lines, order_pyramids, pick,
+            reading_text, request_args, rules_bound, segsum_bound)
     except ImportError as e:
         print(f'chip_smoke: the port is not importable here: {e}',
               file=sys.stderr)
@@ -688,10 +705,20 @@ def main() -> int:
 
     v0 = caps.voxels[0]
     cases = []
+    # natural K1 calls of the [order] lines
+    order_cases = []
 
-    def conv_case(label, args, dtype, path='serving'):
-        feats, w, rules = args
+    def conv_case(label, call, dtype, path='serving', order=False):
+        """A recorded K1 call (args, kwargs) as the path launched it (on its
+        level's row order where it ran on one), held to the plain version;
+        ``order``: its natural call goes to the ``[order]`` lines too."""
+        (feats, w, rules), kw = call
         feats, w = feats.to(dtype), w.to(dtype)
+        rows = kw.get('rows')
+        if rows is not None:
+            label += ' on its row order'
+        if order:
+            order_cases.append((label, natural_k1(([feats, w, rules], kw))))
         hits = int((rules >= 0).sum())
         flops = 2.0 * hits * w.shape[1] * w.shape[2]
         byts = nbytes(feats, w, rules) \
@@ -701,29 +728,29 @@ def main() -> int:
             name=f'K1 rulebook_conv {label}', key='rulebook_conv',
             path=path, route='cuda', source='softgroup_tpu_torch/csrc/conv.cu',
             replaces='softgroup_tpu/ops/conv_kernel.py:374',
-            fn=lambda: ck.rulebook_conv(feats, w, rules),
-            plain=lambda: ck.rulebook_conv_plain(feats, w, rules),
+            fn=lambda: ck.rulebook_conv(feats, w, rules, rows=rows),
+            plain=lambda: ck.rulebook_conv_plain(feats, w, rules, rows),
             library=None, tol_rel=tol_rel,
             reason=('f32 sums in another order, one rounding of the output '
                     f'to {dtype}: {tol_rel:g} x max|plain|'),
             bound=bound(byts, flops, dtype)))
 
     l0_subm = pick(conv_calls, lambda a, k: a[2].shape == (27, v0)
-                   and a[1].shape[1:] == (32, 32), 'L0 subm 32->32')[0]
+                   and a[1].shape[1:] == (32, 32), 'L0 subm 32->32')
     conv_case('L0 subm 32->32 bf16', l0_subm, torch.bfloat16)
-    conv_case('L0 subm 32->32 f32', l0_subm, torch.float32)
+    conv_case('L0 subm 32->32 f32', l0_subm, torch.float32, order=True)
     conv_case('input conv 6->32 bf16', pick(
-        conv_calls, lambda a, k: a[1].shape[1] == 6, 'input conv')[0],
+        conv_calls, lambda a, k: a[1].shape[1] == 6, 'input conv'),
         torch.bfloat16)
     conv_case('L5 tail 384->192 bf16', pick(
         conv_calls, lambda a, k: a[1].shape[1:] == (384, 192),
-        '384->192')[0], torch.bfloat16)
+        '384->192'), torch.bfloat16)
     conv_case('L6 subm 224->224 bf16', pick(
         conv_calls, lambda a, k: a[1].shape[1:] == (224, 224),
-        '224->224')[0], torch.bfloat16)
+        '224->224'), torch.bfloat16, order=True)
     conv_case('L0->L1 down 32->64 bf16', pick(
         conv_calls, lambda a, k: a[2].shape[0] == 8
-        and a[1].shape[1:] == (32, 64), 'down L0->L1')[0], torch.bfloat16)
+        and a[1].shape[1:] == (32, 64), 'down L0->L1'), torch.bfloat16)
 
     def gather_case(label, args, path='serving'):
         src, idx = args
@@ -860,7 +887,8 @@ def main() -> int:
                                            cin, ch).items():
             fam, label = label.split(' ', 1)
             if fam == 'K1':
-                conv_case(label, a, torch.bfloat16, path)
+                conv_case(label, (a, kw), torch.bfloat16, path,
+                          order=path == 's3dis' and 'L0 subm' in label)
             elif fam == 'K2':
                 gather_case(label, a, path)
             else:
@@ -991,8 +1019,13 @@ def main() -> int:
     cv0, cpts = cli_caps.voxels[0], cli_caps.points
     conv_case(f'train CLI L0 subm 32->32 bf16 (V0={cv0})', pick(
         crec.calls['rulebook_conv'], lambda a, k: a[2].shape == (27, cv0)
-        and a[1].shape[1:] == (32, 32), 'train CLI L0 subm')[0],
-        torch.bfloat16, 'train_cli_backbone')
+        and a[1].shape[1:] == (32, 32), 'train CLI L0 subm'),
+        torch.bfloat16, 'train_cli_backbone', order=True)
+    cv1 = cli_caps.voxels[1]
+    conv_case(f'train CLI L1 subm 64->64 bf16 (V1={cv1})', pick(
+        crec.calls['rulebook_conv'], lambda a, k: a[2].shape == (27, cv1)
+        and a[1].shape[1:] == (64, 64), 'train CLI L1 subm'),
+        torch.bfloat16, 'train_cli_backbone', order=True)
     gather_case(f'train CLI devoxelize (V0, 32) bf16 (V0={cv0})', pick(
         crec.calls['row_gather'], lambda a, k: a[0].dtype == torch.bfloat16
         and a[0].shape == (cv0, 32), 'train CLI devoxelize')[0],
@@ -1028,10 +1061,10 @@ def main() -> int:
     kv0 = kcli_caps.voxels[0]
     conv_case(f'KITTI CLI input conv 1->32 bf16 (V0={kv0})', pick(
         kcrec.calls['rulebook_conv'], lambda a, k: a[1].shape[1] == 1,
-        'KITTI CLI input conv')[0], torch.bfloat16, 'kitti_cli')
+        'KITTI CLI input conv'), torch.bfloat16, 'kitti_cli')
     conv_case(f'KITTI CLI L0 subm 32->32 bf16 (V0={kv0})', pick(
         kcrec.calls['rulebook_conv'], lambda a, k: a[2].shape == (27, kv0)
-        and a[1].shape[1:] == (32, 32), 'KITTI CLI L0 subm')[0],
+        and a[1].shape[1:] == (32, 32), 'KITTI CLI L0 subm'),
         torch.bfloat16, 'kitti_cli')
     dw_case(f'KITTI CLI L0 subm 32->32 bf16 (V0={kv0})', pick(
         kcrec.calls['rulebook_conv_dw'], lambda a, k: a[2].shape == (27, kv0)
@@ -1102,6 +1135,11 @@ def main() -> int:
             partial_trace=reading[1] or bool(lib_dev and lib_dev[1])))
     del cases
     torch.cuda.empty_cache()
+    order_lines(order_cases, 'chip_smoke', card)
+    del order_cases
+    order_build_lines(order_pyramids(sys.modules[__name__], dev),
+                      'chip_smoke', card)
+    torch.cuda.empty_cache()
     bn_lines(card)
     phase_done('kernels vs plain')
 
@@ -1139,8 +1177,8 @@ def main() -> int:
     serve_counts = read_counts()
     log(f'[main-path] serving: launches over {N_REQUESTS} requests: '
         f'{json.dumps(serve_counts)}')
-    missing = [k for k in ('rulebook_conv', 'row_gather',
-                           'cell_neighbor_join', 'keyed_conv',
+    missing = [k for k in ('rulebook_conv', 'rulebook_conv_grouped',
+                           'row_gather', 'cell_neighbor_join', 'keyed_conv',
                            'masked_batch_norm')
                if serve_counts[k] <= 0]
     if missing:
@@ -1234,8 +1272,8 @@ def main() -> int:
         train_counts[mode] = counts
         log(f'[main-path] training ({mode}): launches over {TRAIN_STEPS} '
             f'steps: {json.dumps(counts)}')
-        need = ['rulebook_conv', 'row_gather', 'cell_neighbor_join',
-                'rulebook_conv_dw', 'sorted_segment_sum',
+        need = ['rulebook_conv', 'rulebook_conv_grouped', 'row_gather',
+                'cell_neighbor_join', 'rulebook_conv_dw', 'sorted_segment_sum',
                 'sorted_key_rules_join', 'masked_batch_norm']
         missing = [k for k in need if counts[k] <= 0]
         if missing:
@@ -1441,8 +1479,8 @@ def plus_phase(runner, plus_data, lift, pcfg, plus_join, reset_counts,
     plus_counts = read_counts()
     log(f'[main-path] SoftGroup++ serving: launches over {N_REQUESTS} '
         f'requests: {json.dumps(plus_counts)}')
-    missing = [k for k in ('rulebook_conv', 'row_gather',
-                           'cell_neighbor_join', 'keyed_conv')
+    missing = [k for k in ('rulebook_conv', 'rulebook_conv_grouped',
+                           'row_gather', 'cell_neighbor_join', 'keyed_conv')
                if plus_counts[k] <= 0]
     if missing:
         raise RuntimeError(f'kernels never launched on the SoftGroup++ '
@@ -1613,8 +1651,8 @@ def s3dis_phase(runner, cfg, data, join_args, lift, reset_counts,
         raise RuntimeError(f'S3DIS metrics missing or not finite: {metrics}')
     log(f'[main-path] S3DIS serving: launches over 2 rooms: '
         f'{json.dumps(counts)}')
-    missing = [k for k in ('rulebook_conv', 'row_gather',
-                           'cell_neighbor_join', 'keyed_conv',
+    missing = [k for k in ('rulebook_conv', 'rulebook_conv_grouped',
+                           'row_gather', 'cell_neighbor_join', 'keyed_conv',
                            'cell_neighbor_join_int64') if counts[k] <= 0]
     if missing:
         raise RuntimeError(f'kernels never launched on the S3DIS serving '
@@ -1965,8 +2003,8 @@ def kitti_phase(net, cfg, root, join_args, reset_counts, read_counts, card,
 
     log(f'[main-path] KITTI panoptic: launches over 2 sweeps: '
         f'{json.dumps(counts)}')
-    missing = [k for k in ('rulebook_conv', 'row_gather',
-                           'cell_neighbor_join', 'keyed_conv',
+    missing = [k for k in ('rulebook_conv', 'rulebook_conv_grouped',
+                           'row_gather', 'cell_neighbor_join', 'keyed_conv',
                            'cell_neighbor_join_int64') if counts[k] <= 0]
     if missing:
         raise RuntimeError(f'kernels never launched on the KITTI panoptic '
@@ -2331,8 +2369,8 @@ def train_cli_phase(paths, batch, reset_counts, read_counts, card,
         'stage 1', [paths[0], '--epochs', '1'], reset_counts, read_counts,
         card)
     need('the train CLI, stage 1', train1, (
-        'rulebook_conv', 'row_gather', 'rulebook_conv_dw',
-        'sorted_segment_sum'))
+        'rulebook_conv', 'rulebook_conv_grouped', 'row_gather',
+        'rulebook_conv_dw', 'sorted_segment_sum'))
     check_kept(cfg1, 1)
 
     # its last weights as a reference .pth: the running statistics set from
@@ -2360,8 +2398,9 @@ def train_cli_phase(paths, batch, reset_counts, read_counts, card,
         'stage 2', [paths[1], '--epochs', '2'], reset_counts, read_counts,
         card)
     need('the train CLI, stage 2', train2, (
-        'rulebook_conv', 'row_gather', 'cell_neighbor_join',
-        'rulebook_conv_dw', 'sorted_segment_sum', 'sorted_key_rules_join'))
+        'rulebook_conv', 'rulebook_conv_grouped', 'row_gather',
+        'cell_neighbor_join', 'rulebook_conv_dw', 'sorted_segment_sum',
+        'sorted_key_rules_join'))
     need('the train CLI, stage 2 validation', val2, ('keyed_conv',))
     if not any(s['logs']['num_pos'] + s['logs']['num_neg'] > 0
                for s in stats2['steps']):
@@ -2707,8 +2746,8 @@ def plus_eval_phase(label: str, runner, cfg, join_args, reset_counts,
                            f'{metrics}')
     log(f'[main-path] {label}: launches over {len(scans)} scans: '
         f'{json.dumps(counts)}')
-    missing = [k for k in ('rulebook_conv', 'row_gather',
-                           'cell_neighbor_join', 'keyed_conv',
+    missing = [k for k in ('rulebook_conv', 'rulebook_conv_grouped',
+                           'row_gather', 'cell_neighbor_join', 'keyed_conv',
                            'cell_neighbor_join_int64') if counts[k] <= 0]
     if missing:
         raise RuntimeError(f'kernels never launched on {label}: {missing}')
@@ -2768,10 +2807,11 @@ def stpls3d_train_phase(cfg, tile, lift, reset_counts, read_counts, card,
     counts = read_counts()
     log(f'[main-path] STPLS3D training: launches over {TRAIN_STEPS} steps: '
         f'{json.dumps(counts)}')
-    missing = [k for k in ('rulebook_conv', 'row_gather',
-                           'cell_neighbor_join', 'cell_neighbor_join_int64',
-                           'rulebook_conv_dw', 'sorted_segment_sum',
-                           'sorted_key_rules_join') if counts[k] <= 0]
+    missing = [k for k in ('rulebook_conv', 'rulebook_conv_grouped',
+                           'row_gather', 'cell_neighbor_join',
+                           'cell_neighbor_join_int64', 'rulebook_conv_dw',
+                           'sorted_segment_sum', 'sorted_key_rules_join')
+               if counts[k] <= 0]
     if missing:
         raise RuntimeError(f'kernels never launched on the STPLS3D train '
                            f'step: {missing}')
@@ -2832,8 +2872,8 @@ def ball_phase(net, cfg, caps, make_request, reset_counts, read_counts,
         sg.forward_grouping = orig
     log(f'[main-path] exact_ball_query serving: launches over {N_REQUESTS} '
         f'requests: {json.dumps(counts)}')
-    missing = [k for k in ('rulebook_conv', 'row_gather', 'keyed_conv')
-               if counts[k] <= 0]
+    missing = [k for k in ('rulebook_conv', 'rulebook_conv_grouped',
+                           'row_gather', 'keyed_conv') if counts[k] <= 0]
     if missing or counts['cell_neighbor_join']:
         raise RuntimeError(f'exact_ball_query path: kernels never launched '
                            f'{missing}, cell joins '
@@ -2964,9 +3004,9 @@ def kitti_cli_phase(path: str, batch, reset_counts, read_counts, card,
     if not all(s['logs']['num_pos'] + s['logs']['num_neg'] > 0
                for s in stats['steps']):
         raise RuntimeError('KITTI CLI: a step without proposals')
-    need = ('rulebook_conv', 'row_gather', 'cell_neighbor_join',
-            'cell_neighbor_join_int64', 'rulebook_conv_dw',
-            'sorted_segment_sum', 'sorted_key_rules_join',
+    need = ('rulebook_conv', 'rulebook_conv_grouped', 'row_gather',
+            'cell_neighbor_join', 'cell_neighbor_join_int64',
+            'rulebook_conv_dw', 'sorted_segment_sum', 'sorted_key_rules_join',
             'masked_batch_norm')
     missing = [k for k in need if train[k] <= 0] + [
         f'validation {k}' for k in ('keyed_conv', 'cell_neighbor_join_int64')
@@ -3152,8 +3192,8 @@ def ddp_phase(card: str) -> dict:
     import torch
 
     from softgroup_tpu_torch.parallel import ddp
-    need = ('rulebook_conv', 'row_gather', 'cell_neighbor_join',
-            'rulebook_conv_dw', 'sorted_segment_sum',
+    need = ('rulebook_conv', 'rulebook_conv_grouped', 'row_gather',
+            'cell_neighbor_join', 'rulebook_conv_dw', 'sorted_segment_sum',
             'sorted_key_rules_join', 'masked_batch_norm')
     out = tempfile.TemporaryDirectory()
     # a fixed cuBLAS workspace, for the repeated step's equal bits; the

@@ -17,7 +17,13 @@
 // The gathered rows come from L2 (feats is a few MB) and a surface tile of
 // 64 voxels hits ~24 of the 27 taps with only ~1/4 of its rows each, so a
 // kernel loses its time to latency (rules, then gathers, then MMAs, each
-// waiting on the one before) and to MMAs on rows that miss.
+// waiting on the one before) and to MMAs on rows that miss.  The
+// submanifold convs therefore run on a row order (``rows``, built on the
+// card from the rulebooks by sparse_conv.hit_orders): each level's rows
+// sorted stably by their 27-bit hit mask, so that a tile's rows share their
+// taps (a train-batch L0 tile: 9 taps, half its rows hitting each, in place
+// of 24 taps at a fifth).  K1 reads the grouped rulebook rules[:, rows] as
+// any other and its epilogue writes tile row i to output row rows[i].
 //
 // K1, bf16 (rulebook_conv_tc, the serving and training paths): a pipelined
 // gather-GEMM.  A block owns BM = 64 output rows x BN (32 or 64) channels.
@@ -125,10 +131,12 @@ __device__ __forceinline__ int lower_bound(const int* a, int n, int q) {
 // neighbour of output row v at tap k, from an explicit rulebook
 struct RulebookTaps {
   const int* rules;
-  int ld;  // row stride of the rulebook (>= v_out)
+  int ld;            // row stride of the rulebook (>= v_out)
+  const int* rows;   // output row of rulebook column v (null: v itself)
   __device__ int operator()(int k, int v) const {
     return rules[(size_t)k * ld + v];
   }
+  __device__ int out_row(int v) const { return rows ? __ldg(rows + v) : v; }
 };
 
 // neighbour of output row v at tap k, from sorted linear keys
@@ -156,6 +164,7 @@ struct KeyedTaps {
     const int p = lower_bound(in_keys, v_in, q);
     return (p < v_in && in_keys[p] == q) ? p : -1;
   }
+  __device__ int out_row(int v) const { return v; }
 };
 
 // f32 variant: CUDA-core FMA on a 4 x (BN/16) micro-tile per thread
@@ -223,11 +232,12 @@ gather_gemm(const float* __restrict__ feats, const float* __restrict__ w,
   for (int i = 0; i < TM; ++i) {
     const int row = row0 + ty * TM + i;
     if (row >= v_out) continue;
+    const int orow = taps.out_row(row);
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int col = col0 + tx + 16 * j;
       if (col < cout)
-        out[((size_t)blockIdx.z * v_out + row) * cout + col] = acc[i][j];
+        out[((size_t)blockIdx.z * v_out + orow) * cout + col] = acc[i][j];
     }
   }
 }
@@ -367,9 +377,15 @@ __device__ __forceinline__ int pick(const int (&x)[N], int i) {
 // K1's neighbour source: the (K, ld) int32 rulebook.  ``fill`` gives a
 // thread its slots of the tile's rule slab: rv[q][h] = rule of tap
 // warp + 4q, row row0 + lane + 32h (-1 past the taps or the rows).
+// ``out_row``: where the epilogue writes tile row v (``rows``: a row order,
+// the rulebook's columns grouped by hit mask; null: in place).
 struct RuleSlab {
   const int* rules;
-  int ld;  // row stride of the rulebook (>= v_out)
+  int ld;            // row stride of the rulebook (>= v_out)
+  const int* rows;   // (v_out,) output row of each column, or null
+  __device__ __forceinline__ int out_row(int v) const {
+    return rows ? __ldg(rows + v) : v;
+  }
   template <int TPW, int RPL>
   __device__ __forceinline__ void fill(int (&rv)[TPW][RPL], int warp,
                                        int lane, int row0, int n_taps,
@@ -479,6 +495,7 @@ struct KeyedSlab {
         if (p < v_in && __ldg(in_keys + p) == key[q][h]) rv[q][h] = p;
       }
   }
+  __device__ __forceinline__ int out_row(int v) const { return v; }
 };
 
 // feats (V_in, cin), w (K, cin, cout) and the neighbour source (a rulebook
@@ -706,6 +723,7 @@ rulebook_conv_tc(const __nv_bfloat16* __restrict__ feats,
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + warp * 16 + g + half * 8;
+    const int orow = row < v_out ? src.out_row(row) : row;  // its output row
     if (vec) {
       // 4 n-tiles at a time: lane t collects n-tile q0 + t's 8 columns
       // (one bf16 pair from each lane of its quad) and stores 16 bytes
@@ -727,7 +745,7 @@ rulebook_conv_tc(const __nv_bfloat16* __restrict__ feats,
             if (p == from) o[p] = got;
         }
         if (row < v_out)
-          *reinterpret_cast<uint4*>(out + (size_t)row * cout + col0 +
+          *reinterpret_cast<uint4*>(out + (size_t)orow * cout + col0 +
                                     (q0 + t) * 8) =
               make_uint4(o[0], o[1], o[2], o[3]);
       }
@@ -740,9 +758,9 @@ rulebook_conv_tc(const __nv_bfloat16* __restrict__ feats,
           const float v = acc[j][2 * half + e];
           if (col >= cout) continue;
           if (partial)
-            partial[((size_t)blockIdx.z * v_out + row) * cout + col] = v;
+            partial[((size_t)blockIdx.z * v_out + orow) * cout + col] = v;
           else
-            out[(size_t)row * cout + col] = __float2bfloat16_rn(v);
+            out[(size_t)orow * cout + col] = __float2bfloat16_rn(v);
         }
       }
     }
@@ -1210,21 +1228,26 @@ extern "C" int sg_conv_dw(const void* feats, int lda, const void* g,
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (feats, W and out share it); rules is
-// (n_taps, ld) int32 with ld >= v_out.  bf16: split blocks per tile cut its
-// step list (1 <= split <= 65535); f32: they cut the tap range (split <=
-// n_taps).  split > 1 needs the f32 scratch ``partial`` (split, v_out, cout).
+// (n_taps, ld) int32 with ld >= v_out.  rows: null, or a permutation of
+// [0, v_out) int32 (a row order): column v of the rules is output row
+// rows[v] (a split launch's f32 slabs are written by it too).  bf16: split
+// blocks per tile cut its step list (1 <= split <= 65535); f32: they cut
+// the tap range (split <= n_taps).  split > 1 needs the f32 scratch
+// ``partial`` (split, v_out, cout).
 extern "C" int sg_rulebook_conv(const void* feats, const void* w,
-                                const void* rules, int ld, int n_taps,
-                                int v_out, int cin, int cout, void* out,
-                                int dtype, int split, void* partial,
-                                void* stream) {
+                                const void* rules, int ld, const void* rows,
+                                int n_taps, int v_out, int cin, int cout,
+                                void* out, int dtype, int split,
+                                void* partial, void* stream) {
   if (cin < 1 || ld < v_out) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const int* r = (const int*)rules;
+  const int* map = (const int*)rows;
   if (dtype == 1)
-    return launch_k1_bf16(feats, w, RuleSlab{(const int*)rules, ld}, n_taps,
-                          v_out, cin, cout, out, split, (float*)partial, s);
-  return launch_fma(feats, w, RulebookTaps{(const int*)rules, ld}, n_taps,
-                    v_out, cin, cout, out, split, (float*)partial, s);
+    return launch_k1_bf16(feats, w, RuleSlab{r, ld, map}, n_taps, v_out, cin,
+                          cout, out, split, (float*)partial, s);
+  return launch_fma(feats, w, RulebookTaps{r, ld, map}, n_taps, v_out, cin,
+                    cout, out, split, (float*)partial, s);
 }
 
 // out_keys (v_out,), in_keys (v_in,) sorted int32; strided: the k2s2 down

@@ -79,7 +79,8 @@ class Dense(nn.Module):
 
 class SubMConv(nn.Module):
     """3^3 submanifold conv, kernel (27, Cin, Cout), no bias.  A level with
-    a rulebook runs K1; a keyed level (``ckey``) runs K4."""
+    a rulebook runs K1 on its row order (``geometry.row_ordered``); a keyed
+    level (``ckey``) runs K4."""
 
     def __init__(self, cin: int, features: int, generator=None):
         super().__init__()
@@ -89,7 +90,8 @@ class SubMConv(nn.Module):
         if lv.subm_rules is None:
             return keyed_conv(x, self.kernel, lv.ckey, lv.ckey,
                               lv.spatial_d, strided=False)
-        return subm_conv(x, self.kernel, lv.subm_rules)
+        return subm_conv(x, self.kernel, lv.subm_rules, lv.subm_rows,
+                         lv.subm_grouped)
 
 
 class DownConv(nn.Module):

@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from ..ops.gather_kernel import gather_rows, row_gather
-from ..ops.geometry import LevelGeom, Pyramid
+from ..ops.geometry import LevelGeom, Pyramid, row_ordered
 from ..ops.grouping import ball_cluster, cell_cluster_csr
 from ..ops.masks import mask_iou_on_cluster, mask_iou_on_pred, mask_label
 from ..ops.rulebook import build_downsample_linear, build_subm_rules_linear
@@ -128,12 +128,14 @@ class SoftGroupNet(nn.Module):
             self.iou_score_linear = Dense(ch, instance_classes + 1, g)
 
     def _voxel_feats(self, x: torch.Tensor, pyramid: Pyramid):
-        """input_conv -> UBlock -> BN/ReLU on the level-0 voxels."""
-        lv0 = pyramid.levels[0]
+        """input_conv -> UBlock -> BN/ReLU on the level-0 voxels, every
+        submanifold conv on its level's row order (built here, once a
+        level)."""
+        levels = row_ordered(pyramid.levels)
         x = x.to(torch.bfloat16 if self.bf16 else torch.float32)
-        x = self.input_conv(x, lv0)
-        x = self.unet(x, pyramid.levels)
-        return self.output_norm(x, lv0.vox_valid, relu=True)
+        x = self.input_conv(x, levels[0])
+        x = self.unet(x, levels)
+        return self.output_norm(x, levels[0].vox_valid, relu=True)
 
     @traced('model.backbone')
     def backbone(self, x: torch.Tensor, pyramid: Pyramid):
@@ -169,11 +171,12 @@ class SoftGroupNet(nn.Module):
     @traced('model.refine')
     def instance_head(self, inst_vox_feats, inst_levels, entry_p2v,
                       n_proposal_cap: int):
-        """tiny U-Net + cls / mask / iou heads."""
+        """tiny U-Net (rulebook levels on their row orders, built here)
+        + cls / mask / iou heads."""
         lv0 = inst_levels[0]
         x = inst_vox_feats.to(torch.bfloat16 if self.bf16
                               else torch.float32)
-        x = self.tiny_unet(x, inst_levels)
+        x = self.tiny_unet(x, row_ordered(inst_levels))
         x = self.tiny_output_norm(x, lv0.vox_valid, relu=True)
         mask_scores_vox = self.mask_linear(x, lv0.vox_valid)
         mask_scores = gather_rows(mask_scores_vox, entry_p2v)

@@ -11,8 +11,10 @@
   (32 channels of (hit tap, channel chunk) pieces) through a 3-stage
   ring of ``cp.async`` gathers and ``mma.sync`` tensor-core products, and
   stores 16-byte vectors from registers; deep levels cut each tile's step
-  list over ``split`` blocks.  f32 (the small card-vs-CPU checks) stays on
-  CUDA-core FMA.
+  list over ``split`` blocks.  With a row order (``rows``) the rulebook's
+  columns come grouped by hit mask and tile row i is written to output row
+  ``rows[i]``: every submanifold conv (``sparse_conv.hit_orders``).
+  f32 (the small card-vs-CPU checks) stays on CUDA-core FMA.
 * K4 ``keyed_conv`` — the same conv with neighbours resolved in the kernel
   from sorted linear keys ``((b*D + x)*D + y)*D + z`` on the proposal grid
   (bounds-tested like ``conv_kernel.py:848-871``).  Replaces
@@ -47,6 +49,7 @@ import itertools
 
 import torch
 
+from ..util.trace import count
 from . import kernels
 
 INT_MAX = 2 ** 31 - 1
@@ -115,9 +118,11 @@ def _partial(split: int, v_out: int, cout: int, like: torch.Tensor):
 
 
 def rulebook_conv_plain(feats: torch.Tensor, weight: torch.Tensor,
-                        rules: torch.Tensor) -> torch.Tensor:
+                        rules: torch.Tensor,
+                        rows: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of K1 (the reference's ``_conv_xla``): per-tap gather
-    of a zero-padded feature matrix, f32 product, f32 sum."""
+    of a zero-padded feature matrix, f32 product, f32 sum; with ``rows``,
+    column v of the rules is output row ``rows[v]``."""
     v = feats.shape[0]
     w = weight.to(feats.dtype).float()
     padded = torch.cat([feats.float(),
@@ -127,7 +132,10 @@ def rulebook_conv_plain(feats: torch.Tensor, weight: torch.Tensor,
     for k in range(rules.shape[0]):
         idx = torch.where(rules[k] < 0, v, rules[k]).long()
         acc += padded[idx] @ w[k]
-    return acc.to(feats.dtype)
+    out = acc.to(feats.dtype)
+    if rows is None:
+        return out
+    return torch.empty_like(out).index_copy_(0, rows.long(), out)
 
 
 def _prep(what, feats, weight):
@@ -143,11 +151,17 @@ def _prep(what, feats, weight):
 
 
 def rulebook_conv(feats: torch.Tensor, weight: torch.Tensor,
-                  rules: torch.Tensor) -> torch.Tensor:
+                  rules: torch.Tensor, *,
+                  rows: torch.Tensor | None = None) -> torch.Tensor:
     """K1: feats (V_in, Cin), weight (K, Cin, Cout), rules (K, V_out) int
-    -> (V_out, Cout) in feats' dtype."""
+    -> (V_out, Cout) in feats' dtype.  ``rows`` (V_out,) int32, a row
+    order (``sparse_conv.hit_orders``): column v of ``rules`` is output row
+    ``rows[v]``, so a rulebook grouped by hit mask gives the natural
+    output."""
+    if rows is not None:
+        count('conv.k1_grouped')
     if feats.device.type == 'cpu':
-        return rulebook_conv_plain(feats, weight, rules)
+        return rulebook_conv_plain(feats, weight, rules, rows)
     feats, weight = _prep('rulebook_conv', feats, weight)
     rules = rules.to(torch.int32)
     if rules.stride(-1) != 1:   # a column slice of a wider table is fine
@@ -161,21 +175,29 @@ def rulebook_conv(feats: torch.Tensor, weight: torch.Tensor,
     if not 1 <= k <= _MAX_TAPS:
         raise ValueError(f'rulebook_conv: 1 to {_MAX_TAPS} taps, got {k}')
     v_out = rules.shape[1]
+    if rows is not None and (rows.dtype != torch.int32
+                             or rows.shape != (v_out,)
+                             or not rows.is_contiguous()
+                             or rows.get_device() != feats.get_device()):
+        raise ValueError('rulebook_conv: rows must be (V_out,) contiguous '
+                         'int32 on the features\' device')
     out = torch.empty((v_out, cout), dtype=feats.dtype, device=feats.device)
     split = _conv_split(k, cin, v_out, cout, feats.dtype)
     partial = _partial(split, v_out, cout, feats)
     rc = kernels.entry('conv', 'sg_rulebook_conv')(
         feats.data_ptr(), weight.data_ptr(), rules.data_ptr(),
-        rules.stride(0), k, v_out, cin, cout, out.data_ptr(),
-        _DTYPES[feats.dtype], split,
+        rules.stride(0), None if rows is None else rows.data_ptr(), k,
+        v_out, cin, cout, out.data_ptr(), _DTYPES[feats.dtype], split,
         partial.data_ptr() if split > 1 else None,
         kernels.stream(feats.device))
     kernels.check(rc, 'rulebook_conv')
     rulebook_conv.launches += 1
+    rulebook_conv.grouped_launches += rows is not None
     return out
 
 
 rulebook_conv.launches = 0
+rulebook_conv.grouped_launches = 0   # of them on a row order
 
 
 def rules_from_keys(out_keys: torch.Tensor, in_keys: torch.Tensor, d: int,

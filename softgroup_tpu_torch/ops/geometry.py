@@ -18,6 +18,7 @@ import torch
 
 from . import native as _native
 from .rulebook import build_downsample_np, build_subm_rules_np
+from .sparse_conv import hit_orders
 from .voxelize import voxelize_np
 
 
@@ -28,7 +29,11 @@ class LevelGeom:
     Two encodings of the neighbour structure: explicit rulebooks
     (``subm_rules`` / ``down_rules``, host-built for the backbone) or a
     sorted linear-key table (``ckey`` + ``spatial_d``, device-built for
-    proposal grids; the keyed conv kernel resolves neighbours itself)."""
+    proposal grids; the keyed conv kernel resolves neighbours itself).
+    ``subm_rows`` / ``subm_grouped``: the rulebook's row order
+    (``sparse_conv.hit_orders``) that the submanifold convs run K1 on,
+    built in the forward (``row_ordered``) before a U-Net takes the
+    levels."""
     vox_coords: torch.Tensor            # (V, 4) int32
     vox_valid: torch.Tensor             # (V,) bool
     subm_rules: torch.Tensor | None     # (27, V) int32, -1 = missing
@@ -38,14 +43,30 @@ class LevelGeom:
     dims: torch.Tensor                  # (3,) int32 spatial extent
     ckey: torch.Tensor | None = None    # (V,) sorted keys (keyed levels)
     spatial_d: int = 0
+    subm_rows: torch.Tensor | None = None     # (V,) int32 row order
+    subm_grouped: torch.Tensor | None = None  # (27, V) subm_rules[:, rows]
 
     def apply(self, fn) -> 'LevelGeom':
         """A copy with ``fn`` applied to each of its tensors."""
         return replace(self, **{
             k: fn(getattr(self, k)) for k in (
                 'vox_coords', 'vox_valid', 'subm_rules', 'down_rules',
-                'parent_idx', 'child_tap', 'dims', 'ckey')
+                'parent_idx', 'child_tap', 'dims', 'ckey', 'subm_rows',
+                'subm_grouped')
             if getattr(self, k) is not None})
+
+
+def row_ordered(levels: Sequence[LevelGeom]) -> tuple[LevelGeom, ...]:
+    """The levels, each rulebook level with its row order
+    (``sparse_conv.hit_orders``: one sort for them all, on the levels'
+    device)."""
+    out = list(levels)
+    todo = [i for i, lv in enumerate(levels) if lv.subm_rules is not None]
+    if todo:
+        orders = hit_orders([levels[i].subm_rules for i in todo])
+        for i, (rows, grouped) in zip(todo, orders):
+            out[i] = replace(levels[i], subm_rows=rows, subm_grouped=grouped)
+    return tuple(out)
 
 
 @dataclass

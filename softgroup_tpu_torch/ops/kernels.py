@@ -37,8 +37,8 @@ _LL = ctypes.c_longlong
 # C signatures of the entry points, by library
 SIGNATURES = {
     'conv': {
-        'sg_rulebook_conv': (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _I, _P,
-                             _P),
+        'sg_rulebook_conv': (_P, _P, _P, _I, _P, _I, _I, _I, _I, _P, _I, _I,
+                             _P, _P),
         'sg_keyed_conv': (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
                           _I, _I, _P, _P),
         'sg_conv_dw': (_P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P,

@@ -13,35 +13,89 @@ feature gradient is another gather conv on K1, every weight gradient is the
 K5 kernel (``conv_kernel.rulebook_conv_dw``).  The cotangent is cast to the
 features' type first, and weight gradients are f32 sums returned in the
 weight's type.
+
+A submanifold conv runs on a row order of its level (``hit_orders``): K1
+reads the rulebook's columns grouped by hit mask, so that a 64-row tile's
+rows share their taps, and writes each row back in place.  The order
+changes no sum: a row adds its hit taps in tap order either way.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..util.trace import count, span
 from .conv_kernel import rulebook_conv, rulebook_conv_dw
+
+
+# a row order's sort key: the hit mask of <= 27 taps, the level above it
+_TAP_BITS = 27
+_MAX_LEVELS = 16
+
+
+def hit_orders(rulebooks) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """The row order of each (K, V) rulebook of ``rulebooks`` (the levels
+    of a pyramid, on one device, K <= 27 taps alike): (rows (V,) int32, the
+    grouped rulebook ``rules[:, rows]`` (K, V) int32, a column slice of one
+    table for all levels).  Rows are sorted stably by their hit mask (bit k
+    set where ``rules[k, v] >= 0``): rows of one mask keep the level's
+    order, and the rows that hit nothing (a capacity's padding) come first,
+    together.  One sort for all levels (each key carries its level above
+    the mask), on the device, without a host synchronise."""
+    rulebooks = list(rulebooks)
+    k = rulebooks[0].shape[0]
+    if len(rulebooks) > _MAX_LEVELS or k > _TAP_BITS or any(
+            r.shape[0] != k for r in rulebooks):
+        raise ValueError(f'hit_orders: at most {_MAX_LEVELS} rulebooks of '
+                         f'one number of taps, at most {_TAP_BITS}')
+    count('conv.row_order', len(rulebooks))
+    with span('conv.row_order'):
+        table = torch.cat([r.to(torch.int32) for r in rulebooks], 1)
+        bits = 1 << torch.arange(k, dtype=torch.int32, device=table.device)
+        keys = torch.where(table >= 0, bits[:, None], 0).sum(
+            0, dtype=torch.int32)
+        bases, base = [], 0
+        for lvl, r in enumerate(rulebooks):
+            bases.append(base)
+            if lvl:
+                keys[base:base + r.shape[1]] |= lvl << _TAP_BITS
+            base += r.shape[1]
+        order = torch.sort(keys, stable=True).indices
+        grouped = table.index_select(1, order)
+        rows = order.to(torch.int32)
+        out = []
+        for base, r in zip(bases, rulebooks):
+            at = slice(base, base + r.shape[1])
+            if base:
+                rows[at] -= base
+            out.append((rows[at], grouped[:, at]))
+        return out
 
 
 class _SubmConv(torch.autograd.Function):
     """Submanifold conv.  Backward: the transpose of tap k is tap K-1-k on
     the same rulebook (the in and out voxel sets coincide), so the feature
-    gradient is the conv with flipped, transposed weights."""
+    gradient is the conv with flipped, transposed weights.  Both K1 calls
+    run on the row order (``rows``, ``grouped``): flipping the taps mirrors
+    every row's mask alike, so the order groups them too.  The weight
+    gradient (K5) reads the natural ``rules``."""
 
     @staticmethod
-    def forward(ctx, feats, weight, rules):
-        ctx.save_for_backward(feats, weight, rules)
-        return rulebook_conv(feats, weight, rules)
+    def forward(ctx, feats, weight, rules, rows, grouped):
+        ctx.save_for_backward(feats, weight, rules, rows, grouped)
+        return rulebook_conv(feats, weight, grouped, rows=rows)
 
     @staticmethod
     def backward(ctx, g):
-        feats, weight, rules = ctx.saved_tensors
+        feats, weight, rules, rows, grouped = ctx.saved_tensors
         g = g.to(feats.dtype)
         g_feats = g_weight = None
         if ctx.needs_input_grad[0]:
-            g_feats = rulebook_conv(g, weight.transpose(1, 2).flip(0), rules)
+            g_feats = rulebook_conv(g, weight.transpose(1, 2).flip(0),
+                                    grouped, rows=rows)
         if ctx.needs_input_grad[1]:
             g_weight = rulebook_conv_dw(feats, g, rules).to(weight.dtype)
-        return g_feats, g_weight, None
+        return g_feats, g_weight, None, None, None
 
 
 def _parents_from_down_rules(down_rules: torch.Tensor, v_fine: int):
@@ -112,10 +166,12 @@ class _InverseConv(torch.autograd.Function):
 
 
 def subm_conv(feats: torch.Tensor, weight: torch.Tensor,
-              rules: torch.Tensor) -> torch.Tensor:
+              rules: torch.Tensor, rows: torch.Tensor,
+              grouped: torch.Tensor) -> torch.Tensor:
     """Submanifold k=3 conv: feats (V, Cin), weight (27, Cin, Cout),
-    rules (27, V) -> (V, Cout)."""
-    return _SubmConv.apply(feats, weight, rules)
+    rules (27, V) -> (V, Cout), K1 on the level's row order ``rows``,
+    ``grouped`` (``hit_orders``)."""
+    return _SubmConv.apply(feats, weight, rules, rows, grouped)
 
 
 def down_conv(feats: torch.Tensor, weight: torch.Tensor,

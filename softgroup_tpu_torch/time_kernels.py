@@ -2,7 +2,7 @@
 the timing and bound helpers ``chip_smoke.py`` uses.
 
     python -m softgroup_tpu_torch.time_kernels [label]
-        [--cases k1,k2,k3,k4,k5,k6,k7] [--fill N,...] [--dw-group G,...]
+        [--cases k1,k2,k3,k4,k5,k6,k7,order] [--fill N,...] [--dw-group G,...]
         [--dw-fill N,...] [--k6-rows N,...] [--k7-tile T,...]
         [--k3-block N,...]
     PYTHONPATH=<other checkout> python softgroup_tpu_torch/time_kernels.py \\
@@ -49,6 +49,18 @@ each again on int64 keys (the same cells through the 64-bit instance of
 the pair-key configs; in a package that has it): m, valid cells, ``dims``, the key windows of each dx group at every tile size, hits
 and gated-in queries, the kernel's own bracket figures, device ms, bound
 and host us; ``--k3-block`` re-times it at other block sizes.
+
+``order`` (``order_args``, ``order_lines``) times K1 at the 7 levels of a
+train batch at the ScanNet stage-1 yaml's capacities (V0 = 524288) and
+levels 0-1 of an S3DIS room (V0 = 1048832), natural against the same call
+on the level's row order (``sparse_conv.hit_orders``): one ``[order]`` line
+a case with both device ms, the order's build, the bound, taps a 64-row
+tile and row density before and after, and the two outputs compared (bit
+for bit where a tile is one block; a difference raises); one
+``[order-build]`` line a pyramid with the build of all its levels' orders
+at once (device ms, launches, host us), held to the CPU's build.  The
+``k1`` cases of the request are timed on the natural rulebook
+(``natural_k1``), so that two checkouts time the same calls.
 
 ``--fill`` times the deep K1 cases and K4's at several values of
 ``conv_kernel._K1_FILL_BLOCKS`` / ``_K4_FILL_BLOCKS`` (the grid size below
@@ -382,6 +394,37 @@ def pick(calls, pred, what):
     raise RuntimeError(f'no recorded call for {what}')
 
 
+def natural_k1(call) -> list:
+    """(feats, weight, rules) of a recorded K1 call (args, kwargs), the
+    rules in the level's natural row order: a call on a row order
+    (``rows=``) has its grouped rulebook placed back by the rows."""
+    import torch
+    args, kw = call
+    rows = kw.get('rows')
+    if rows is None:
+        return args
+    feats, w, grouped = args
+    rules = torch.empty_like(grouped)
+    rules[:, rows.long()] = grouped
+    return [feats, w, rules]
+
+
+def tile_taps(rules, tile: int = 64) -> tuple[float, float, int]:
+    """(taps a K1 tile of ``tile`` rulebook columns hits, over the tiles
+    that hit any; the share of a hit tap's rows that hit, over all of
+    them; the tiles that hit any): the MMA pieces a tile runs, how full
+    they are, and the tiles that have work."""
+    import torch
+    k, v = rules.shape
+    hit = torch.cat([rules >= 0, rules.new_zeros((k, -v % tile),
+                                                 dtype=torch.bool)], 1)
+    per = hit.view(k, -1, tile).sum(2)          # (K, tiles) rows that hit
+    taps = (per > 0).sum(0)
+    live = taps > 0
+    return (float(taps[live].double().mean()),
+            float(per.sum()) / (tile * float(taps.sum())), int(live.sum()))
+
+
 def k1_k2_args(calls: dict, v0: int, cells: int) -> dict:
     """The K1 and K2 cases of ``chip_smoke.py`` and two mid-level K1 convs,
     by label, from the recorded calls of one request (``v0``: level-0
@@ -389,20 +432,21 @@ def k1_k2_args(calls: dict, v0: int, cells: int) -> dict:
     import torch
     conv, gather = calls['rulebook_conv'], calls['row_gather']
     return {
-        'K1 L0 subm 32->32': pick(conv, lambda a, k: a[2].shape == (27, v0)
-                                  and a[1].shape[1:] == (32, 32), 'L0')[0],
-        'K1 L1 subm 64->64': pick(
+        'K1 L0 subm 32->32': natural_k1(pick(
+            conv, lambda a, k: a[2].shape == (27, v0)
+            and a[1].shape[1:] == (32, 32), 'L0')),
+        'K1 L1 subm 64->64': natural_k1(pick(
             conv, lambda a, k: a[2].shape[0] == 27
-            and a[1].shape[1:] == (64, 64), 'L1')[0],
-        'K1 L2 subm 96->96': pick(
+            and a[1].shape[1:] == (64, 64), 'L1')),
+        'K1 L2 subm 96->96': natural_k1(pick(
             conv, lambda a, k: a[2].shape[0] == 27
-            and a[1].shape[1:] == (96, 96), 'L2')[0],
-        'K1 input conv 6->32': pick(conv, lambda a, k: a[1].shape[1] == 6,
-                                    'input conv')[0],
-        'K1 L5 tail 384->192': pick(
-            conv, lambda a, k: a[1].shape[1:] == (384, 192), '384')[0],
-        'K1 L6 subm 224->224': pick(
-            conv, lambda a, k: a[1].shape[1:] == (224, 224), '224')[0],
+            and a[1].shape[1:] == (96, 96), 'L2')),
+        'K1 input conv 6->32': natural_k1(pick(
+            conv, lambda a, k: a[1].shape[1] == 6, 'input conv')),
+        'K1 L5 tail 384->192': natural_k1(pick(
+            conv, lambda a, k: a[1].shape[1:] == (384, 192), '384')),
+        'K1 L6 subm 224->224': natural_k1(pick(
+            conv, lambda a, k: a[1].shape[1:] == (224, 224), '224')),
         'K1 L0->L1 down 32->64': pick(
             conv, lambda a, k: a[2].shape[0] == 8
             and a[1].shape[1:] == (32, 64), 'down')[0],
@@ -475,6 +519,152 @@ def request_args(calls: dict, caps, tag: str,
     for label, args in k4_args(calls['keyed_conv'], ch).items():
         out[f'K4 {tag} {label[3:]}'] = args
     return out
+
+
+def k1_bound(feats, w, rules) -> tuple[float, str]:
+    """K1's bound: one read of feats, W and the rules, one write of the
+    output; the FLOPs of the rules that hit."""
+    hits = int((rules >= 0).sum())
+    byts = nbytes(feats, w, rules) \
+        + rules.shape[1] * w.shape[2] * feats.element_size()
+    return bound(byts, 2.0 * hits * w.shape[1] * w.shape[2], feats.dtype)
+
+
+def order_pyramids(cs, dev) -> dict:
+    """The subm rulebooks of the row-order cases by tag: the 7 levels of a
+    train batch at the ScanNet stage-1 yaml's capacities (4 rooms of
+    ``cs.SCANNET_POINTS`` points, seeds 600-603, V0 = 524288) and the
+    levels of an S3DIS room through the S3DIS runner (``cs.s3dis_rooms``,
+    V0 = 1048832)."""
+    import tempfile
+
+    import numpy as np
+
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.data.synthetic import make_room_scene
+    from softgroup_tpu_torch.tools_impl import train_cli
+    from softgroup_tpu_torch.util.config import load_config
+    cfg = load_config(entry.SCANNET_YAMLS[0])
+    caps = train_cli.caps_from_cfg(cfg)
+    scenes = [make_room_scene(np.random.RandomState(600 + j),
+                              n_points=cs.SCANNET_POINTS, n_instances=12)
+              for j in range(4)]
+    train = entry.build_train_batch(
+        scenes, cfg.model, caps, scale=float(cfg.data.train.voxel_cfg.scale),
+        device=dev).pyramid.levels
+    with tempfile.TemporaryDirectory() as root:
+        scfg = cs.s3dis_rooms(root)
+        runner = entry.build_s3dis_runner(
+            entry.build_net(scfg.model, seed=0, device=dev), scfg, dev)
+        s3dis = runner.build_batch(cs.first_scan(scfg))[0].pyramid.levels
+    return {tag: [lv.subm_rules for lv in levels]
+            for tag, levels in (('train', train), ('s3dis', s3dis))}
+
+
+def order_args(pyramids: dict, dev) -> list:
+    """(label, (feats, weight, rules)) of the row-order cases: the train
+    batch's 7 levels and the S3DIS room's levels 0-1 (``order_pyramids``),
+    bf16 features and weights from seed 0 at the levels' widths."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for tag, n in (('train', 7), ('s3dis', 2)):
+        for i, rules in enumerate(pyramids[tag][:n]):
+            c = 32 * (i + 1)
+            out.append((f'{tag} L{i} subm {c}->{c} bf16 (V={rules.shape[1]})',
+                        (torch.randn(rules.shape[1], c, device=dev,
+                                     generator=g).bfloat16(),
+                         (torch.randn(27, c, c, device=dev, generator=g)
+                          * 0.1).bfloat16(), rules)))
+    return out
+
+
+def order_build_lines(pyramids: dict, lbl: str, card: str) -> None:
+    """One ``[order-build]`` line a pyramid of ``order_pyramids``: the row
+    orders of all its levels built at once on the card as the forward
+    builds them (``sparse_conv.hit_orders``), its device ms, launches and
+    host us; raises unless the rows and grouped rulebooks equal the CPU's
+    build.  A package without row orders prints nothing."""
+    import torch
+
+    from softgroup_tpu_torch.ops import sparse_conv
+    hit_orders = getattr(sparse_conv, 'hit_orders', None)
+    if hit_orders is None:
+        return
+    for tag, rulebooks in pyramids.items():
+        fn = lambda: hit_orders(rulebooks)
+        rows, partial = profiled_rows(fn)
+        launches = sum(r[1] for r in rows) / DEVICE_REPS
+        dev_ms = sum(r[0] for r in rows) / DEVICE_REPS
+        same = all(
+            torch.equal(r.cpu(), rh) and torch.equal(gr.cpu(), grh)
+            for (r, gr), (rh, grh) in zip(
+                fn(), hit_orders([r.cpu() for r in rulebooks])))
+        v = sum(r.shape[1] for r in rulebooks)
+        print(f'time_kernels {lbl} [order-build] {tag} {len(rulebooks)} '
+              f'levels (V={v}): device_ms={dev_ms:.6f}'
+              + (' partial_trace=True' if partial else '')
+              + f' launches={launches:g} host_us={host_us(fn):.1f} '
+              f'equals_cpu={same} [{card}]', flush=True)
+        if not same:
+            raise RuntimeError(f'{tag}: the row orders built on the card '
+                               f'differ from the CPU\'s')
+
+
+def order_lines(cases: list, lbl: str, card: str) -> None:
+    """One ``[order]`` line a K1 case (label, (feats, weight, rules)):
+    split, device ms of the natural call, of the call on the rules' row
+    order (``sparse_conv.hit_orders``) and of the order's build, the
+    bound, taps a 64-row tile and the share of a hit tap's rows that hit
+    (natural -> grouped, from the rulebook), the tiles that have any work,
+    and the grouped output against the natural one: bit for bit where a
+    tile is one block (split 1), else the largest difference over
+    max|natural| within K1's bf16 tolerance; raises where they differ.  A
+    package without row orders times the natural call alone."""
+    import torch
+
+    from softgroup_tpu_torch.ops import conv_kernel as ck
+    from softgroup_tpu_torch.ops import sparse_conv
+    hit_orders = getattr(sparse_conv, 'hit_orders', None)
+    tol = 2.0 ** -7
+    for label, (feats, w, rules) in cases:
+        k, cin, cout = w.shape
+        split = ck._conv_split(k, cin, rules.shape[1], cout, feats.dtype)
+        b_ms, b_by = k1_bound(feats, w, rules)
+        nat = device_reading(lambda: ck.rulebook_conv(feats, w, rules))
+        text = (f'split={split} natural_ms={reading_text(nat)} '
+                f'bound_ms={b_ms:.6f} ({b_by})')
+        tiles = -(-rules.shape[1] // 64)
+        taps, dens, live = tile_taps(rules)
+        if hit_orders is None:
+            print(f'time_kernels {lbl} [order] {label}: {text} taps_a_tile='
+                  f'{taps:.2f} row_density={dens:.4f} tiles_with_work='
+                  f'{live}/{tiles} [{card}]', flush=True)
+            continue
+        rows, grouped = hit_orders([rules])[0]
+        grp = device_reading(lambda: ck.rulebook_conv(
+            feats, w, grouped, rows=rows))
+        build = device_reading(lambda: hit_orders([rules]))
+        g_taps, g_dens, _ = tile_taps(grouped)
+        got = ck.rulebook_conv(feats, w, grouped, rows=rows)
+        want = ck.rulebook_conv(feats, w, rules)
+        if split == 1 or feats.dtype == torch.float32:
+            ok = torch.equal(got, want)
+            same = f'bitwise_equal={ok}'
+        else:
+            err = float((got.double() - want.double()).abs().max()) / max(
+                1.0, float(want.double().abs().max()))
+            ok = err <= tol
+            same = f'rel_err={err:.3g} (tol {tol:g})'
+        print(f'time_kernels {lbl} [order] {label}: {text} grouped_ms='
+              f'{reading_text(grp)} order_ms={reading_text(build)} '
+              f'taps_a_tile={taps:.2f}->{g_taps:.2f} row_density='
+              f'{dens:.4f}->{g_dens:.4f} tiles_with_work={live}/{tiles} '
+              f'{same} [{card}]', flush=True)
+        if not ok:
+            raise RuntimeError(f'{label}: K1 on the row order is not the '
+                               f'natural K1 ({same})')
+        del rows, grouped, got, want
 
 
 def dw_shape_label(shape: tuple, caps, base: int = 32) -> str:
@@ -1181,8 +1371,9 @@ def _timed(label, name, fn, card, extra='', device_only=False):
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument('label', nargs='?', default='')
-    ap.add_argument('--cases', default='k1,k2,k3,k4,k5,k6,k7',
-                    help='comma-separated kernel families to time')
+    ap.add_argument('--cases', default='k1,k2,k3,k4,k5,k6,k7,order',
+                    help='comma-separated kernel families to time (order: '
+                         'K1 natural against its row order)')
     ap.add_argument('--fill', default='',
                     help='comma-separated _K1_FILL_BLOCKS values to time the '
                          'deep K1 cases at')
@@ -1291,6 +1482,13 @@ def main() -> None:
             setattr(ck, attr, k4_fill0)
         ck._K1_FILL_BLOCKS = fill0
         del rec, cases, net, batch
+
+    if 'order' in families:
+        pyramids = order_pyramids(_chip_smoke(), 'cuda')
+        order_build_lines(pyramids, lbl, card)
+        order_lines(order_args(pyramids, 'cuda'), lbl, card)
+        del pyramids
+        torch.cuda.empty_cache()
 
     def values(opt):
         return [int(x) for x in opt.split(',') if x] or [None]

@@ -111,6 +111,105 @@ def test_rulebook_conv_room(dev, monkeypatch, dtype, fill, case, cin, cout):
         assert not got.any()
 
 
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('fill', [1, None], ids=['split1', 'split'])
+@pytest.mark.parametrize('case,cin,cout', [
+    ('subm', 32, 32), ('subm', 6, 32), ('subm', 224, 224), ('subm', 7, 19),
+    ('subm', 1, 32), ('subm_grad', 32, 64)])
+def test_rulebook_conv_row_order(dev, monkeypatch, dtype, fill, case, cin,
+                                 cout):
+    """K1 on a room's rulebook grouped by hit mask (``hit_orders``, built
+    on the card as on the CPU), each row written back by ``rows``: equal
+    to the natural call bit for bit where a tile is one block (and for
+    f32, whose split cuts the tap range alike), within K1's tolerance of
+    it where a bf16 tile's steps are cut over several blocks."""
+    from softgroup_tpu_torch.ops.sparse_conv import hit_orders
+    if fill is not None:
+        monkeypatch.setattr(ck, '_K1_FILL_BLOCKS', fill)
+        monkeypatch.setattr(ck, '_FILL_BLOCKS', fill)
+    subm, _ = _room_rulebooks()
+    rules_h = torch.from_numpy(_padded(subm, 150))
+    r = rules_h.to(dev)
+    rows, grouped = hit_orders([r])[0]
+    rows_h, grouped_h = hit_orders([rules_h])[0]
+    assert torch.equal(rows.cpu(), rows_h)
+    assert torch.equal(grouped.cpu(), grouped_h)
+    g = torch.Generator(device=dev).manual_seed(cin * 1000 + cout + 7)
+    f = torch.randn(subm.shape[1], cin, device=dev, generator=g).to(dtype)
+    if case == 'subm_grad':   # as _SubmConv.backward calls it
+        w = torch.randn(27, cout, cin, device=dev, generator=g)
+        w = (w * 0.1).to(dtype).transpose(1, 2).flip(0)
+    else:
+        w = (torch.randn(27, cin, cout, device=dev, generator=g)
+             * 0.1).to(dtype)
+    got = ck.rulebook_conv(f, w, grouped, rows=rows)
+    natural = ck.rulebook_conv(f, w, r)
+    want = ck.rulebook_conv_plain(f, w, r).double()
+    tol = (2.0 ** -7 if dtype == torch.bfloat16 else 2e-5) \
+        * max(1.0, float(want.abs().max()))
+    assert float((got.double() - want).abs().max()) <= tol
+    if fill == 1 or dtype == torch.float32:
+        assert torch.equal(got, natural)
+    else:
+        assert float((got.double() - natural.double()).abs().max()) <= tol
+
+
+def test_hit_orders_card_equals_cpu(dev):
+    """The order's build on the card (the masks, one stable sort, the
+    grouped table) gives the CPU's rows and grouped rulebooks for several
+    levels at once, a column slice of a wider table among them."""
+    from softgroup_tpu_torch.ops.sparse_conv import hit_orders
+    subm, _ = _room_rulebooks()
+    wide = torch.from_numpy(_padded(subm, 300))
+    levels = [torch.from_numpy(_padded(subm, 150)), wide[:, :subm.shape[1]],
+              torch.from_numpy(subm[:, ::3].copy())]
+    on_card = hit_orders([r.to(dev) for r in levels])
+    for (rows, grouped), (rows_h, grouped_h) in zip(on_card,
+                                                    hit_orders(levels)):
+        assert torch.equal(rows.cpu(), rows_h)
+        assert torch.equal(grouped.cpu(), grouped_h)
+
+
+def test_backbone_row_order_bitwise(dev, monkeypatch):
+    """A bf16 backbone forward and backward on the card on the row orders
+    and on the identity orders, one block a tile: outputs and every
+    parameter's gradient bit for bit."""
+    from softgroup_tpu_torch import entry
+    from softgroup_tpu_torch.model.softgroup import Capacities, SoftGroupNet
+    from softgroup_tpu_torch.ops import geometry
+    monkeypatch.setattr(ck, '_K1_FILL_BLOCKS', 1)
+    scenes = [make_room_scene(np.random.RandomState(40 + i), n_points=12000,
+                              n_instances=4) for i in range(2)]
+    caps = Capacities(points=24576, voxels=(16384, 8192, 4096, 2048),
+                      grouping_points=8192, proposals=32,
+                      proposal_entries=8192, instances=32,
+                      inst_voxels=(2048, 512), grouping_cells=4096)
+    cfg = entry.train_cfg()
+    cfg.num_blocks = len(caps.voxels)
+    pyramid = entry.build_train_batch(scenes, cfg, caps, scale=20.0).pyramid
+    x = torch.randn(caps.voxels[0], 6, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(4))
+
+    def run():
+        net = SoftGroupNet(channels=16, num_blocks=4, semantic_classes=20,
+                           instance_classes=18, bf16=True,
+                           generator=torch.Generator().manual_seed(0))
+        net = net.to(dev)
+        out = net.backbone(x, pyramid)
+        sum(o.float().sum() for o in out[:2]).backward()
+        return out, [p.grad for p in net.parameters() if p.grad is not None]
+    got, got_g = run()
+    monkeypatch.setattr(geometry, 'hit_orders', lambda rulebooks: [
+        (torch.arange(r.shape[1], dtype=torch.int32, device=r.device), r)
+        for r in rulebooks])
+    want, want_g = run()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert len(got_g) == len(want_g) > 0
+    for a, b in zip(got_g, want_g):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32,
                                    torch.int32])
 def test_row_gather_exact(dev, dtype):

@@ -64,7 +64,7 @@ class TestSparseConv:
         w = (rng.randn(27, cin, cout) * 0.2).astype(np.float32)
         ref = jsc.subm_conv(jnp.asarray(x), jnp.asarray(w),
                             jb.pyramid.levels[level].subm_rules)
-        out = sc.subm_conv(_t(x), _t(w), rules)
+        out = sc.subm_conv(_t(x), _t(w), rules, *sc.hit_orders([rules])[0])
         np.testing.assert_allclose(out.numpy(), np.asarray(ref),
                                    rtol=1e-5, atol=1e-5)
 

@@ -25,10 +25,11 @@ from softgroup_tpu_torch.util import trace
 from torch_helpers import CAPS, batch_args, tiny_cfg, tiny_data
 
 STEP_SPANS = ('train.forward', 'train.backward', 'train.optimizer', 'bn',
-              'model.backbone', 'model.grouping', 'model.voxelize',
-              'model.refine')
-FORWARD_SPANS = ('runner.forward', 'model.backbone', 'bn', 'model.grouping',
-                 'model.voxelize', 'model.refine', 'postprocess.to_numpy')
+              'model.backbone', 'conv.row_order', 'model.grouping',
+              'model.voxelize', 'model.refine')
+FORWARD_SPANS = ('runner.forward', 'model.backbone', 'conv.row_order', 'bn',
+                 'model.grouping', 'model.voxelize', 'model.refine',
+                 'postprocess.to_numpy')
 
 
 @pytest.fixture(autouse=True)
@@ -121,8 +122,11 @@ def test_spans_nest_in_a_train_step_and_a_forward(batch):
     assert {r.name for r in fwd} == set(FORWARD_SPANS)
     for r in step:
         assert r.start_ns <= r.end_ns
-        if r.name in ('bn', 'model.backbone', 'model.grouping'):
+        if r.name in ('bn', 'model.backbone', 'model.grouping',
+                      'conv.row_order'):
             assert _chain(r)[-1] == 'train.forward', _chain(r)
+        if r.name == 'conv.row_order':   # before a U-Net takes its levels
+            assert r.parent.name in ('model.backbone', 'model.refine')
         if r.parent is not None:
             assert r.parent.start_ns <= r.start_ns <= r.end_ns \
                 <= r.parent.end_ns

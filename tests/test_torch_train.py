@@ -136,7 +136,8 @@ def test_conv_backward(batches, kind):
     rng = np.random.RandomState(20)
     if kind == 'subm':
         k, v_in, v_out = 27, vf, vf
-        port = lambda x, w: sc.subm_conv(x, w, lv.subm_rules)
+        order = sc.hit_orders([lv.subm_rules])[0]
+        port = lambda x, w: sc.subm_conv(x, w, lv.subm_rules, *order)
         ref = lambda x, w: jsc.subm_conv(x, w, jlv.subm_rules)
     elif kind == 'down':
         k, v_in, v_out = 8, vf, vc
